@@ -1,0 +1,5 @@
+from nngparareal_torch.systems.base import ODE
+from nngparareal_torch.systems.odes import FHNODE
+from nngparareal_torch.systems.pdes import Burgers
+
+__all__ = ["ODE", "FHNODE", "Burgers"]
