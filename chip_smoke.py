@@ -6,22 +6,33 @@
 Phases, each printed as it ends with its seconds:
 
 1. env       torch and CUDA versions, the card, its power limit.
-2. build     nvcc builds the fan-out kernel from csrc/rk_fanout.cu.
-3. kernels   the kernel against its plain torch version at the flagship
-             shapes (RK8, d=128, B=128 and a ragged B=37; 200 steps; max
-             error relative to max|U| must be <= 1e-12), then the times of
-             both at the full 40 000 steps, and the bound.
-4. flagship  the port's main path: Burgers d=128 nnGParareal
+2. build     nvcc builds the fan-out kernel from csrc/rk_fanout.cu, and
+             prints the compiler's register and spill report.
+3. kernels   the kernel against its plain torch version, for each field
+             at its path's shapes (max error relative to max|U| must be
+             <= 1e-12, RK8, 200 steps): Burgers d=128 at B=128 and a
+             ragged B=37; FHN-PDE dx=16 (d=512) at B=512 and B=37, from
+             u0 plus a seeded perturbation, on slices of the
+             configuration's width. Then each kernel's time at its full
+             step count (40 000 and 195 325), the plain version's time
+             at 1000 steps (as measured, never scaled up), and the bound.
+4. flagship  the port's first path: Burgers d=128 nnGParareal
              (bench.py:90-121: N=128 over [0, 5.9], RK1 x4 / RK8 x40000
              per slice, m=18, grid search, seed 45, eps=5e-7) through
              Parareal.run. It must converge with 10 <= K <= 14, and the
-             fan-out kernel must have run in it. The run's first
+             Burgers kernel must have run in it. The run's first
              corrector sweep keeps a copy of its inputs; after the run it
              is replayed once for its wall time and once under
              torch.profiler for its launches and device time.
-5. serial    the converged iterates against a serial fine solve, slice by
-             slice (atol 2e-5, as tests/test_parareal.py holds the JAX
-             package).
+5. fhn_pde   the second path: the FHN-PDE d-scaling run at dx=16 (d=512,
+             N=512 over [0, 1100], RK4 x25 / RK8 x195 325 per slice,
+             nnGP nn=20, grid search, seed 45, eps=5e-7) through
+             experiments.run_fhn_pde. It must converge with 4 <= K <= 7,
+             and the FHN-PDE kernel must have run in it.
+6. serial    both runs' converged iterates against serial fine solves,
+             slice by slice (atol 2e-5, as tests/test_parareal.py holds
+             the JAX package): Burgers one slice after another from u0,
+             FHN-PDE with one kernel fan-out from the converged starts.
 
 Then one JSON line describing each kernel, the card's name and power limit
 as nvidia-smi prints them, and as the last line
@@ -33,6 +44,7 @@ card, or a directory without the package.
 
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -48,10 +60,18 @@ HBM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = dict(d_x=128, N=128, T=5.9, Ng=4, Nf=40000, G="RK1", F="RK8",
                 eps=5e-7, nn=18, seed=45)
+FHN_PDE_DX = 16
 CHECK_STEPS = 200
+PLAIN_STEPS = 1000
 KERNEL_RTOL = 1e-12
 K_RANGE = (10, 14)
+FHN_PDE_K_RANGE = (4, 7)
 SERIAL_ATOL = 2e-5
+
+# f64 operations of one field evaluation, per thread of the kernel (one
+# grid point of Burgers, one cell of FHN-PDE with both species), counted
+# from csrc/rk_fanout.cu
+FIELD_OPS = {"burgers": 9, "fhn_pde": 29}
 
 
 class PhaseError(RuntimeError):
@@ -113,19 +133,40 @@ def phase_build():
          "-Xptxas", "-v", "-c", "-o", str(obj), str(rk_cuda.SOURCE)],
         capture_output=True, text=True, timeout=300)
     obj.unlink(missing_ok=True)
-    report = [ln.strip() for ln in proc.stderr.splitlines()
-              if "registers" in ln or "spill" in ln]
     return {"library": os.path.relpath(lib, HERE), "fresh": fresh,
-            "build_s": round(build_s, 3), "ptxas": report}
+            "build_s": round(build_s, 3),
+            "ptxas": ptxas_report(proc.stderr)}
 
 
-def flops_per_point_step(tab):
-    """f64 operations per grid point per RK step of the kernel: 9 per
-    Burgers field evaluation, 2 per nonzero a_ij and b_i, 2 for the step
-    update."""
+def ptxas_report(text):
+    """Registers and spills of each kernel instance, keyed by field and
+    stage count, from ``-Xptxas -v`` output."""
+    report = {}
+    key = None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            stages = re.search(r"ILi(\d+)E", m.group(1))
+            field = "fhn_pde" if "FhnPdeField" in m.group(1) else "burgers"
+            key = f"{field}/{stages.group(1) if stages else '?'} stages"
+            report[key] = {}
+        elif key and "spill" in ln:
+            report[key]["spills"] = ln.split(":", 1)[-1].strip()
+        elif key and "registers" in ln:
+            report[key]["registers"] = ln.split(":", 1)[-1].strip()
+    return report or text.strip().splitlines()[-5:]
+
+
+def flops_per_thread_step(tab, field):
+    """f64 operations per kernel thread per RK step: one field evaluation
+    per stage (9 for a Burgers point; 29 for an FHN-PDE cell: two 5-point
+    Laplacians of 9, the u1 reaction 7, the u2 reaction 4), and for each
+    state value of the thread 2 per nonzero a_ij and b_i and 2 for the
+    step update."""
     nz_a = sum(1 for row in tab.a for x in row if x != 0.0)
     nz_b = sum(1 for x in tab.b if x != 0.0)
-    return 9 * tab.stages + 2 * nz_a + 2 * nz_b + 2
+    return (FIELD_OPS[field.name] * tab.stages
+            + field.values * (2 * nz_a + 2 * nz_b + 2))
 
 
 def _event_ms(fn, reps, warm=True):
@@ -144,26 +185,18 @@ def _event_ms(fn, reps, warm=True):
     return start.elapsed_time(stop) / reps
 
 
-def phase_kernels(state):
-    import torch
-    import nngparareal_torch as nt
+def check_kernel(state, ode, t0s, t1s, U, steps, ragged):
+    """Hold the kernel against its plain version at 200 steps (all slices
+    and the last ``ragged`` ones), time both, and record the kernel's
+    entry for the JSON line (its launches come from its path's run)."""
     from nngparareal_torch.ops import rk_cuda
     from nngparareal_torch.ops.butcher import get_tableau
     from nngparareal_torch.ops.rk import make_batched_last_integrator
 
-    cfg = FLAGSHIP
-    dev = state["device"]
-    ode = nt.Burgers(d_x=cfg["d_x"], normalization="-11", device=dev)
     field = ode.get_device_field()
     f = ode.get_vector_field()
-    tab = get_tableau(cfg["F"])
-    solver = nt.RKSolver(f, cfg["Ng"], cfg["Nf"], G=cfg["G"], F=cfg["F"],
-                         device_field=field, device=dev)
-    # the first fan-out's inputs on the main path: the coarse chain
-    t = torch.linspace(0.0, cfg["T"], cfg["N"] + 1, dtype=torch.float64,
-                       device=dev)
-    U = solver.run_G_chain(t, ode.get_init_cond())[:-1].contiguous()
-    t0s, t1s = t[:-1].contiguous(), t[1:].contiguous()
+    tab = get_tableau("RK8")
+    B, d = U.shape
 
     def compare(lo):
         args = (t0s[lo:].contiguous(), t1s[lo:].contiguous(),
@@ -174,33 +207,33 @@ def phase_kernels(state):
         abs_err = (got - want).abs().max().item()
         rel = abs_err / want.abs().max().item()
         if not (rel <= KERNEL_RTOL):
-            raise PhaseError(f"kernel vs plain at B={got.shape[0]}: max "
-                             f"error {rel:.3e} of max|U| > {KERNEL_RTOL}")
-        return abs_err, rel
+            raise PhaseError(f"{field.name} kernel vs plain at B={B - lo}: "
+                             f"max error {rel:.3e} of max|U| > {KERNEL_RTOL}")
+        return {"B": B - lo, "max_abs_err": abs_err, "max_rel_err": rel}
 
-    abs128, rel128 = compare(0)
-    abs37, rel37 = compare(max(cfg["N"] - 37, 0))
+    full = compare(0)
+    part = compare(max(B - ragged, 0))
 
-    B, d, steps = cfg["N"], cfg["d_x"], cfg["Nf"]
     ms = _event_ms(
-        lambda: rk_cuda.rk_fanout(t0s, t1s, U, tab, steps, field, f), reps=3)
-    # the plain version over the same 40 000 steps, once: the comparison
-    # above has already run its ops
-    plain = make_batched_last_integrator(f, tab, steps)
+        lambda: rk_cuda.rk_fanout(t0s, t1s, U, tab, steps, field, f), reps=2)
+    # the plain version over PLAIN_STEPS steps, once: the comparison above
+    # has already run its ops
+    plain = make_batched_last_integrator(f, tab, PLAIN_STEPS)
     plain_ms = _event_ms(lambda: plain(t0s, t1s, U), reps=1, warm=False)
-    flops = B * d * steps * flops_per_point_step(tab)
+    flops = B * (d // field.values) * steps * flops_per_thread_step(tab, field)
     nbytes = 8 * (2 * B + 2 * B * d + tab.stages * (tab.stages + 1))
     flop_ms = flops / FP64_PEAK * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    state["rk_fanout"] = {
-        "name": "rk_fanout",
+    entry = {
+        "name": f"rk_fanout[{field.name}]",
         "route": "cuda",
         "source": "nngparareal_torch/csrc/rk_fanout.cu",
         "replaces": "nngparareal_tpu/ops/rk_pallas.py:194",
-        "launches": None,  # filled in from the flagship run
-        "max_abs_err": abs128,
+        "launches": None,  # filled in from the path's run
+        "max_abs_err": full["max_abs_err"],
         "ms": ms,
         "plain_ms": plain_ms,
+        "plain_steps": PLAIN_STEPS,
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
         "library_ms": None,
@@ -208,10 +241,45 @@ def phase_kernels(state):
         "steps": steps,
         "flops": flops,
     }
-    return {"B128": {"max_abs_err": abs128, "max_rel_err": rel128},
-            "B37": {"max_abs_err": abs37, "max_rel_err": rel37},
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(flop_ms, byte_ms),
-            "flops": flops}
+    state["kernels"][field.name] = entry
+    return {"all": full, "ragged": part, "ms": ms, "steps": steps,
+            "plain_ms": plain_ms, "plain_steps": PLAIN_STEPS,
+            "bound_ms": entry["bound_ms"], "flops": flops}
+
+
+def phase_kernels(state):
+    import numpy as np
+    import torch
+    import nngparareal_torch as nt
+
+    dev = state["device"]
+    info = {}
+
+    # Burgers: the flagship's first fan-out, from its coarse chain
+    cfg = FLAGSHIP
+    ode = nt.Burgers(d_x=cfg["d_x"], normalization="-11", device=dev)
+    solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
+                         G=cfg["G"], F=cfg["F"],
+                         device_field=ode.get_device_field(), device=dev)
+    t = torch.linspace(0.0, cfg["T"], cfg["N"] + 1, dtype=torch.float64,
+                       device=dev)
+    U = solver.run_G_chain(t, ode.get_init_cond())[:-1].contiguous()
+    info["burgers"] = check_kernel(state, ode, t[:-1].contiguous(),
+                                   t[1:].contiguous(), U, cfg["Nf"], 37)
+
+    # FHN-PDE: u0 plus a seeded perturbation, 512 slices of the
+    # configuration's width (its coarse chain would take 512 coarse steps)
+    from nngparareal_torch.experiments import fhn_pde_parareal
+
+    p = fhn_pde_parareal(FHN_PDE_DX, device=dev)
+    rng = np.random.default_rng(0)
+    Up = p.ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0, (p.N, p.n))
+    tt = np.linspace(p.tspan[0], p.tspan[1], p.N + 1)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    info["fhn_pde"] = check_kernel(state, p.ode, as_t(tt[:-1]),
+                                   as_t(tt[1:]), as_t(Up).contiguous(),
+                                   p.solver.Nf, 37)
+    return info
 
 
 def keep_first_sweep(p):
@@ -285,7 +353,6 @@ def phase_flagship(state):
     import numpy as np
     import torch
     import nngparareal_torch as nt
-    from nngparareal_torch.ops import rk_cuda
 
     cfg = FLAGSHIP
     dev = state["device"]
@@ -296,24 +363,21 @@ def phase_flagship(state):
     p = nt.Parareal(ode, solver, [0.0, cfg["T"]], cfg["N"],
                     epsilon=cfg["eps"], verbose=None, device=dev)
     sweep, kept = keep_first_sweep(p)
-    rk_cuda.rk_fanout.launches = 0
+    zero_counts()
     out = p.run(model="nngp", nn=cfg["nn"], seed=cfg["seed"],
                 optimizer="grid")
     torch.cuda.synchronize()
-    launches = rk_cuda.rk_fanout.launches
-    state["rk_fanout"]["launches"] = launches
+    launches = read_counts(state, "burgers")
     state["flagship"] = (p, out)
     tm = out["timings"]
-    # active intervals swept: N - (I + 1) in each iteration that swept
-    starts = [0] + out["conv_int"][:-1]
-    intervals = sum(cfg["N"] - (i + 1) for i in starts if i + 1 < cfg["N"])
+    intervals, per_interval = sweep_stats(out, cfg["N"])
     info = {"K": out["k"], "converged": out["converged"],
             "conv_int": out["conv_int"], "runtime_s": tm["runtime"],
             "fine_s": tm["F_time"], "model_s": tm["mdl_pred_t"],
             "coarse_s": tm["G_time"], "sweep_s": tm["sweep_time"],
             "sweep_share": tm["sweep_time"] / tm["runtime"],
             "intervals": intervals,
-            "sweep_ms_per_interval": 1e3 * tm["sweep_time"] / max(intervals, 1),
+            "sweep_ms_per_interval": 1e3 * per_interval,
             "warmup_s": tm["warmup_t"], "total_wall_s": tm["total_wall"],
             "fanout_launches": launches}
     u = out["u"]
@@ -324,9 +388,95 @@ def phase_flagship(state):
         raise PhaseError(f"flagship: converged={out['converged']} K="
                          f"{out['k']}, expected convergence with K in "
                          f"{list(K_RANGE)}")
-    if launches < 1:
-        raise PhaseError("the fan-out kernel was not launched on the main path")
     info["first_sweep_profile"] = profile_sweep(sweep, kept, cfg["N"])
+    return info
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0, just before a path runs."""
+    from nngparareal_torch.ops import rk_cuda
+
+    rk_cuda.rk_fanout.launches = 0
+    for name in rk_cuda.rk_fanout.launches_by_field:
+        rk_cuda.rk_fanout.launches_by_field[name] = 0
+
+
+def read_counts(state, field):
+    """Read the counts just after a path ran; its field's kernel must have
+    launched, and no other."""
+    from nngparareal_torch.ops import rk_cuda
+
+    counts = dict(rk_cuda.rk_fanout.launches_by_field)
+    if counts[field] < 1:
+        raise PhaseError(f"the {field} fan-out kernel was not launched on "
+                         f"its path: {counts}")
+    others = {k: v for k, v in counts.items() if k != field and v}
+    if others or rk_cuda.rk_fanout.launches != counts[field]:
+        raise PhaseError(f"the {field} path launched other kernels: {counts}")
+    state["kernels"][field]["launches"] = counts[field]
+    return counts[field]
+
+
+def sweep_stats(out, N):
+    """Active intervals swept (N - (I + 1) in each iteration that swept)
+    and the sweep's wall per interval."""
+    starts = [0] + out["conv_int"][:-1]
+    intervals = sum(N - (i + 1) for i in starts if i + 1 < N)
+    return intervals, out["timings"]["sweep_time"] / max(intervals, 1)
+
+
+def phase_fhn_pde(state):
+    import numpy as np
+    import torch
+    from nngparareal_torch import experiments
+    from nngparareal_torch.driver import Parareal
+
+    dev = state["device"]
+    # keep the run's Parareal and its output: the summary rows hold no
+    # iterates, and the serial phase checks them
+    kept = {}
+    run = Parareal.run
+
+    def keep(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        kept["run"] = (self, out)
+        return out
+
+    Parareal.run = keep
+    try:
+        zero_counts()
+        rows = experiments.run_fhn_pde(
+            FHN_PDE_DX, models=("nngp",), results_dir=None,
+            nngp_kw=dict(optimizer="grid"), device=dev)
+        torch.cuda.synchronize()
+        launches = read_counts(state, "fhn_pde")
+    finally:
+        Parareal.run = run
+    p, out = kept["run"]
+    state["fhn_pde"] = (p, out)
+    row = rows[0]
+    tm = out["timings"]
+    intervals, per_interval = sweep_stats(out, p.N)
+    info = {"K": row["k"], "converged": row["converged"],
+            "conv_int": row["conv_int"], "runtime_s": row["runtime"],
+            "fine_s": tm["F_time"], "model_s": tm["mdl_pred_t"],
+            "coarse_s": tm["G_time"], "coarse_init_s": tm["G_init_time"],
+            "sweep_s": tm["sweep_time"],
+            "sweep_share": tm["sweep_time"] / tm["runtime"],
+            "intervals": intervals,
+            "sweep_s_per_interval": per_interval,
+            "est_serial_s": row["est_serial"], "calc_speedup": row["speedup"],
+            "warmup_s": tm["warmup_t"], "total_wall_s": tm["total_wall"],
+            "fanout_launches": launches}
+    u = out["u"]
+    if u.shape != (p.N + 1, p.n) or not np.isfinite(u).all():
+        raise PhaseError(f"fhn_pde iterates: shape {u.shape}, "
+                         f"finite={bool(np.isfinite(u).all())}")
+    lo, hi = FHN_PDE_K_RANGE
+    if not row["converged"] or not lo <= row["k"] <= hi:
+        raise PhaseError(f"fhn_pde: converged={row['converged']} K="
+                         f"{row['k']}, expected convergence with K in "
+                         f"{list(FHN_PDE_K_RANGE)}")
     return info
 
 
@@ -334,6 +484,7 @@ def phase_serial(state):
     import numpy as np
     import torch
 
+    # Burgers: one slice after another from u0
     p, out = state["flagship"]
     t = out["t"]
     u = p.u0
@@ -346,10 +497,25 @@ def phase_serial(state):
     serial_s = time.perf_counter() - tic
     err = float(np.abs(serial - out["u"]).max())
     if not err <= SERIAL_ATOL:
-        raise PhaseError(f"parareal vs serial fine: max |du| {err:.3e} > "
+        raise PhaseError(f"flagship vs serial fine: max |du| {err:.3e} > "
                          f"{SERIAL_ATOL}")
-    return {"max_abs_diff": err, "serial_fine_s": serial_s,
-            "speedup_vs_serial_fine": serial_s / out["timings"]["runtime"]}
+    info = {"burgers": {
+        "max_abs_diff": err, "serial_fine_s": serial_s,
+        "speedup_vs_serial_fine": serial_s / out["timings"]["runtime"]}}
+
+    # FHN-PDE: every slice's fine solve from its converged start, in one
+    # kernel fan-out, against the converged end of that slice
+    p, out = state["fhn_pde"]
+    t, u = out["t"], out["u"]
+    tic = time.perf_counter()
+    ends = p.solver.run_F_batch(t[:-1], t[1:], u[:-1]).cpu().numpy()
+    fan_s = time.perf_counter() - tic
+    err = float(np.abs(ends - u[1:]).max())
+    if not err <= SERIAL_ATOL:
+        raise PhaseError(f"fhn_pde vs fine solves from the converged starts:"
+                         f" max |du| {err:.3e} > {SERIAL_ATOL}")
+    info["fhn_pde"] = {"max_abs_diff": err, "fanout_s": fan_s}
+    return info
 
 
 def main():
@@ -383,13 +549,14 @@ def main():
 
     signal.signal(signal.SIGALRM, on_alarm)
     signal.alarm(DEADLINE_S)
-    state = {"device": torch.device("cuda", 0)}
+    state = {"device": torch.device("cuda", 0), "kernels": {}}
     t_start = time.perf_counter()
     try:
         env = phases.run("env", phase_env)
         phases.run("build", phase_build)
         phases.run("kernels", phase_kernels, state)
         phases.run("flagship", phase_flagship, state)
+        phases.run("fhn_pde", phase_fhn_pde, state)
         phases.run("serial", phase_serial, state)
     except Exception as exc:  # report the phase, exit nonzero
         signal.alarm(0)
@@ -401,7 +568,7 @@ def main():
         return 1
     signal.alarm(0)
     print(f"[total] {time.perf_counter() - t_start:.3f}s", flush=True)
-    print(json.dumps({"kernels": [state["rk_fanout"]]}))
+    print(json.dumps({"kernels": list(state["kernels"].values())}))
     print(env["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

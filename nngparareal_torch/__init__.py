@@ -9,7 +9,7 @@ Entry points (the systems, ``RKSolver``, ``Parareal``) put their tensors
 on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
-from nngparareal_torch.systems import ODE, FHNODE, Burgers
+from nngparareal_torch.systems import ODE, FHNODE, FHNPDE, Burgers
 from nngparareal_torch.systems.configs import Config
 from nngparareal_torch.solver import RKSolver
 from nngparareal_torch.driver import Parareal
@@ -17,6 +17,7 @@ from nngparareal_torch.driver import Parareal
 __all__ = [
     "ODE",
     "FHNODE",
+    "FHNPDE",
     "Burgers",
     "Config",
     "RKSolver",

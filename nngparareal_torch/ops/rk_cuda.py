@@ -2,17 +2,22 @@
 
 Replaces the Pallas TPU kernel ``nngparareal_tpu/ops/rk_pallas.py``
 (``make_pallas_fanout_ds``): B time slices of fixed-step explicit RK, every
-step inside one launch, computed in native f64 on the card.
+step inside one launch, computed in native f64 on the card. The Pallas
+kernel traced any JAX field; this one has a device form of each field it
+serves, and a system hands it that field's constants
+(``ode.get_device_field()``): ``BurgersField`` or ``FhnPdeField``.
 
 Build and binding: ``nvcc`` compiles the source into a shared library with
 a plain C interface the first time the kernel is needed, into
-``nngparareal_torch/_build/<hash of source and flags>/``; ``ctypes`` loads
+``nngparareal_torch/_build/<hash of sources and flags>/``; ``ctypes`` loads
 it. Nothing here includes PyTorch's C++ headers, so the build takes
 seconds, and importing this module needs neither a card nor ``nvcc``.
 
 ``rk_fanout`` takes its plain version (ops/rk.py) only for tensors on the
 CPU. For CUDA tensors it launches the kernel or raises; it never falls
-back. ``rk_fanout.launches`` counts the kernel's launches.
+back. ``rk_fanout.launches`` counts the kernel's launches, and
+``rk_fanout.launches_by_field`` the same launches per field, keyed by the
+field's ``name``.
 """
 
 import ctypes
@@ -30,11 +35,12 @@ from nngparareal_torch.ops.butcher import flat_coefficients, get_tableau
 from nngparareal_torch.ops.rk import make_batched_last_integrator
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "rk_fanout.cu"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "rk_fanout.cu"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-MAX_D = 512  # the kernel's __launch_bounds__: one thread per grid point
+MAX_THREADS = 512  # the kernel's __launch_bounds__: one thread per cell
 STAGES = (1, 2, 4, 11)  # the tableaus the kernel is instantiated for
 
 
@@ -42,10 +48,54 @@ STAGES = (1, 2, 4, 11)  # the tableaus the kernel is instantiated for
 class BurgersField:
     """The [-1,1]-normalised Burgers field as the kernel takes it: its two
     stencil constants (systems/pdes.py:Burgers._f_norm11 evaluates the same
-    field in torch)."""
+    field in torch). One thread per grid point: d of them per slice."""
 
     inv_h2: float
     half_inv_2h: float
+
+    name = "burgers"
+    values = 1  # state values per thread
+
+    def grid(self, d):
+        """The C entry point's grid arguments for a state of d values."""
+        return (d,)
+
+    def constants(self):
+        return (self.inv_h2, self.half_inv_2h)
+
+
+@dataclass(frozen=True)
+class FhnPdeField:
+    """The [-1,1]-normalised FitzHugh-Nagumo 2D field as the kernel takes
+    it: the grid, the inverse squared spacings and the reaction constants
+    (systems/pdes.py:FHNPDE._f evaluates the same field in torch). One
+    thread per cell, carrying both species: d_y * d_x per slice."""
+
+    d_x: int
+    d_y: int
+    inv_hx2: float
+    inv_hy2: float
+    a: float
+    b: float
+    k: float
+    inv_tau: float
+
+    name = "fhn_pde"
+    values = 2  # both species of a cell in one thread
+
+    def grid(self, d):
+        """The C entry point's grid arguments for a state of d values."""
+        if d != 2 * self.d_x * self.d_y:
+            raise ValueError(f"FHN-PDE on a {self.d_y}x{self.d_x} grid has "
+                             f"d={2 * self.d_x * self.d_y}, got d={d}")
+        return (self.d_x, self.d_y)
+
+    def constants(self):
+        return (self.inv_hx2, self.inv_hy2, self.a, self.b, self.k,
+                self.inv_tau)
+
+
+FIELDS = (BurgersField, FhnPdeField)
 
 
 def find_nvcc():
@@ -65,10 +115,13 @@ def find_nvcc():
 
 
 def library_path():
-    """Where the library for the current source and flags lives."""
-    key = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """Where the library for the current sources and flags lives: the key
+    hashes every file under csrc/, the .cu and any header it may include,
+    so that no edit there loads a stale library."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    key = digest.hexdigest()[:16]
     return BUILD_ROOT / key / "librk_fanout.so"
 
 
@@ -100,13 +153,18 @@ def build(timeout=600.0):
 
 @functools.cache
 def _library():
+    """The C entry point of each field: (t0s, t1s, U, out, tab, stages, B,
+    <field's grid>, steps, <field's constants>, stream)."""
     lib = ctypes.CDLL(str(build()))
-    fn = lib.rk_fanout_burgers_launch
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_double, ctypes.c_double, p]
-    fn.restype = ctypes.c_int
-    return fn
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    head = [p, p, p, p, p, i, i]
+    burgers = lib.rk_fanout_burgers_launch
+    burgers.argtypes = head + [i, ctypes.c_longlong, f, f, p]
+    fhn_pde = lib.rk_fanout_fhn_pde_launch
+    fhn_pde.argtypes = head + [i, i, ctypes.c_longlong, f, f, f, f, f, f, p]
+    for fn in (burgers, fhn_pde):
+        fn.restype = ctypes.c_int
+    return {"burgers": burgers, "fhn_pde": fhn_pde}
 
 
 def _check(name, x, shape, device):
@@ -125,13 +183,13 @@ def _check(name, x, shape, device):
 def rk_fanout(t0s, t1s, U, tableau, steps, field, f):
     """U(t1) for B slices: ``steps`` fixed RK steps of the field per slice.
 
-    t0s, t1s: (B,) f64; U: (B, d) f64 contiguous. ``field`` is the
-    BurgersField the kernel takes; ``f`` is the same system's torch vector
-    field (``ode.get_vector_field()``), which the plain version integrates
-    for CPU tensors. Each slice steps with its own
-    h = (t1s[b] - t0s[b]) / steps.
+    t0s, t1s: (B,) f64; U: (B, d) f64 contiguous. ``field`` is the device
+    field the kernel takes (``BurgersField`` or ``FhnPdeField``); ``f`` is
+    the same system's torch vector field (``ode.get_vector_field()``),
+    which the plain version integrates for CPU tensors. Each slice steps
+    with its own h = (t1s[b] - t0s[b]) / steps.
     """
-    if not isinstance(field, BurgersField):
+    if not isinstance(field, FIELDS):
         raise TypeError(f"the fan-out kernel has no form of {field!r}")
     tab = get_tableau(tableau)
     steps = int(steps)
@@ -145,8 +203,11 @@ def rk_fanout(t0s, t1s, U, tableau, steps, field, f):
     _check("U", U, (B, d), U.device)
     _check("t0s", t0s, (B,), U.device)
     _check("t1s", t1s, (B,), U.device)
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"the kernel takes 1 <= d <= {MAX_D}, got d={d}")
+    grid = field.grid(d)
+    threads = d // field.values
+    if not 1 <= threads <= MAX_THREADS:
+        raise ValueError(f"the kernel takes 1 to {MAX_THREADS} threads per "
+                         f"slice, {field.name} at d={d} needs {threads}")
     if tab.stages not in STAGES:
         raise ValueError(f"no kernel instance for {tab.stages} stages")
     if steps < 0:
@@ -154,18 +215,20 @@ def rk_fanout(t0s, t1s, U, tableau, steps, field, f):
     out = torch.empty_like(U)
     if B == 0:
         return out
-    launch = _library()
+    launch = _library()[field.name]
     coefs = torch.tensor(flat_coefficients(tab), dtype=torch.float64,
                          device=U.device)
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
         rc = launch(t0s.data_ptr(), t1s.data_ptr(), U.data_ptr(),
-                    out.data_ptr(), coefs.data_ptr(), tab.stages, B, d, steps,
-                    float(field.inv_h2), float(field.half_inv_2h), stream)
+                    out.data_ptr(), coefs.data_ptr(), tab.stages, B, *grid,
+                    steps, *field.constants(), stream)
     if rc != 0:
         raise RuntimeError(f"rk_fanout kernel launch failed: cudaError {rc}")
     rk_fanout.launches += 1
+    rk_fanout.launches_by_field[field.name] += 1
     return out
 
 
 rk_fanout.launches = 0
+rk_fanout.launches_by_field = {cls.name: 0 for cls in FIELDS}

@@ -1,5 +1,5 @@
 from nngparareal_torch.systems.base import ODE
 from nngparareal_torch.systems.odes import FHNODE
-from nngparareal_torch.systems.pdes import Burgers
+from nngparareal_torch.systems.pdes import FHNPDE, Burgers
 
-__all__ = ["ODE", "FHNODE", "Burgers"]
+__all__ = ["ODE", "FHNODE", "FHNPDE", "Burgers"]

@@ -1,15 +1,16 @@
 """Canonical per-system run parameters from the paper.
 
 Port of ``nngparareal_tpu/systems/configs.py`` for the systems the port
-has: FHN ODE and Burgers. ``Config(ode).get()`` yields {tspan, u0, N, Ng,
-Nf, G, F} with per-slice step counts Ng/Nf.
+has: FHN ODE, FHN-PDE and Burgers. ``Config(ode).get()`` yields {tspan,
+u0, N, Ng, Nf, G, F} with per-slice step counts Ng/Nf (and ``epsilon`` for
+FHN-PDE).
 """
 
 import numpy as np
 
 from nngparareal_torch.systems.base import ODE
 from nngparareal_torch.systems.odes import FHNODE
-from nngparareal_torch.systems.pdes import Burgers
+from nngparareal_torch.systems.pdes import FHNPDE, Burgers
 
 
 class Config:
@@ -18,6 +19,8 @@ class Config:
     def __init__(self, ode: ODE, N=None, d_x=None):
         if isinstance(ode, FHNODE):
             cfg = self._fhn_ode()
+        elif isinstance(ode, FHNPDE):
+            cfg = self._fhn_pde(d_x)
         elif isinstance(ode, Burgers):
             cfg = self._burgers(ode.d_x, N)
         else:
@@ -38,6 +41,25 @@ class Config:
         return dict(
             tspan=[0, 40], u0=np.array([-1.0, 1.0]), N=N, Ng=Ng / N, Nf=Nf / N,
             G="RK2", F="RK4",
+        )
+
+    @staticmethod
+    def _fhn_pde(d_x):
+        # the d-scaling experiment: N=512; (coarse steps per slice, T,
+        # coarse method) per grid width, dx=16's row for any other width
+        N = 512
+        params = {
+            10: (3, 150, "RK2"),
+            12: (12, 550, "RK2"),
+            14: (25, 950, "RK2"),
+            16: (25, 1100, "RK4"),
+        }
+        mul, T, G = params.get(d_x, (25, 1100, "RK4"))
+        Ng = N * mul
+        Nf = int(np.ceil(1e4 / Ng) * Ng)
+        return dict(
+            tspan=[0, T], N=N, Ng=Ng / N, Nf=Nf / N, G=G, F="RK8",
+            epsilon=5e-7,
         )
 
     @staticmethod

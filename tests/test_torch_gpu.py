@@ -1,6 +1,7 @@
 """The CUDA fine fan-out kernel against its plain torch version, on the
-card. Run on a machine with one: ``python -m pytest -m gpu -p no:xdist
-tests/test_torch_gpu.py``. Without a card every test here skips.
+card, for both fields it has: Burgers and FHN-PDE. Run on a machine with
+one: ``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
+Without a card every test here skips.
 
 Whether a card exists is decided inside each test (never at import or in a
 ``skipif``), so every pytest-xdist worker collects the same tests.
@@ -9,6 +10,7 @@ Tolerance: rtol 1e-12 of max|U| after 200 steps. nvcc contracts a*b+c into
 FMAs, the plain version does not: the two differ by rounding only.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,6 +40,19 @@ def _inputs(B, d, dev, seed=0):
     return ode, t0, t1, U.contiguous()
 
 
+def _fhn_pde_inputs(B, d_x, dev, seed=0):
+    """FHN-PDE states around u0, on slices of the configuration's width."""
+    rng = np.random.default_rng(seed)
+    ode = nt.FHNPDE(d_x=d_x, normalization="-11", device=dev)
+    cfg = nt.Config(ode, d_x=d_x).get()
+    width = (cfg["tspan"][1] - cfg["tspan"][0]) / cfg["N"]
+    d = ode.get_dim()
+    U = ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0, (B, d))
+    t0 = rng.uniform(0.0, cfg["tspan"][1] - width, B)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    return ode, as_t(t0), as_t(t0 + width), as_t(U).contiguous()
+
+
 @pytest.mark.parametrize("tab,B,d,steps", [
     ("RK8", 128, 128, 200),
     ("RK8", 37, 128, 200),
@@ -59,6 +74,21 @@ def test_kernel_matches_plain(tab, B, d, steps):
     assert err <= RTOL, err
 
 
+@pytest.mark.parametrize("B", [512, 37])
+@pytest.mark.parametrize("d_x", [10, 16])
+def test_fhn_pde_kernel_matches_plain(B, d_x):
+    dev = _card()
+    ode, t0, t1, U = _fhn_pde_inputs(B, d_x, dev)
+    f = ode.get_vector_field()
+    before = rk_cuda.rk_fanout.launches_by_field["fhn_pde"]
+    got = rk_cuda.rk_fanout(t0, t1, U, "RK8", 200, ode.get_device_field(), f)
+    torch.cuda.synchronize()
+    assert rk_cuda.rk_fanout.launches_by_field["fhn_pde"] == before + 1
+    want = make_batched_last_integrator(f, "RK8", 200)(t0, t1, U)
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= RTOL, err
+
+
 def test_kernel_rejects_bad_inputs():
     dev = _card()
     ode, t0, t1, U = _inputs(4, 128, dev)
@@ -69,6 +99,12 @@ def test_kernel_rejects_bad_inputs():
         rk_cuda.rk_fanout(t0, t1, U.t().contiguous().t(), "RK8", 5, fld, f)
     with pytest.raises(ValueError, match="shape"):
         rk_cuda.rk_fanout(t0[:3], t1, U, "RK8", 5, fld, f)
+    # a grid of more cells than a block has threads
+    big = nt.FHNPDE(d_x=24, normalization="-11", device=dev)
+    Ub = big.get_init_cond()[None].expand(2, -1).contiguous()
+    with pytest.raises(ValueError, match="threads"):
+        rk_cuda.rk_fanout(t0[:2], t1[:2], Ub, "RK8", 5,
+                          big.get_device_field(), big.get_vector_field())
 
 
 def test_solver_auto_uses_kernel_on_card():
@@ -86,3 +122,7 @@ def test_solver_auto_uses_kernel_on_card():
     fhn = nt.FHNODE(normalization="-11", device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nt.RKSolver(fhn.get_vector_field(), 4, 8, device=dev)
+    pde = nt.FHNPDE(d_x=10, normalization="-11", device=dev)
+    s = nt.RKSolver(pde.get_vector_field(), 3, 50, G="RK2", F="RK8",
+                    device_field=pde.get_device_field(), device=dev)
+    assert s.fine == "cuda"
