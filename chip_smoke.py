@@ -10,12 +10,17 @@ Phases, each printed as it ends with its seconds:
              prints the compiler's register and spill report.
 3. kernels   the kernel against its plain torch version, for each field
              at its path's shapes (max error relative to max|U| must be
-             <= 1e-12, RK8, 200 steps): Burgers d=128 at B=128 and a
-             ragged B=37; FHN-PDE dx=16 (d=512) at B=512 and B=37, from
-             u0 plus a seeded perturbation, on slices of the
-             configuration's width. Then each kernel's time at its full
-             step count (40 000 and 195 325), the plain version's time
-             at 1000 steps (as measured, never scaled up), and the bound.
+             <= 1e-12, 200 steps): Burgers d=128 at B=128 and a ragged
+             B=37, and FHN-PDE dx=16 (d=512) at B=512 and B=37, RK8; the
+             seven ODE fields (FHN, Rossler, Hopf, DblPend, Brusselator,
+             Lorenz, ThomasLabyrinth) at B = the configuration's N, 37 and
+             1 (the coarse solves' shape), with RK8 and the tableaus of
+             their Table-2 path. The states are u0 plus a seeded
+             perturbation, on slices of the configuration's width. Then
+             each kernel's time at its path's full step count, the plain
+             version's time at min(1000, steps) steps (as measured, never
+             scaled up), and the bound; Hopf also at B=512 with run_hopf's
+             3.4e6 RK8 steps per slice.
 4. flagship  the port's first path: Burgers d=128 nnGParareal
              (bench.py:90-121: N=128 over [0, 5.9], RK1 x4 / RK8 x40000
              per slice, m=18, grid search, seed 45, eps=5e-7) through
@@ -29,10 +34,23 @@ Phases, each printed as it ends with its seconds:
              nnGP nn=20, grid search, seed 45, eps=5e-7) through
              experiments.run_fhn_pde. It must converge with 4 <= K <= 7,
              and the FHN-PDE kernel must have run in it.
-6. serial    both runs' converged iterates against serial fine solves,
-             slice by slice (atol 2e-5, as tests/test_parareal.py holds
-             the JAX package): Burgers one slice after another from u0,
-             FHN-PDE with one kernel fan-out from the converged starts.
+6. table2    the third path: experiments.run_table2 at eps=5e-7 with the
+             parareal and nngp (grid search) models, all six systems at
+             their published configurations. Each system's path must have
+             launched its own field's kernel (fine fan-outs and coarse
+             solves) and no other. Parareal K must equal the CPU IEEE-f64
+             oracle (FHN 11, Rossler 18, Hopf 19, Brusselator 19, Lorenz
+             15, DblPend 15), and nnGP K lie in the range
+             tests/test_parity_slow.py allows the JAX package (Rossler's
+             widened to 11-13 by the JAX package's own K under a 4e-16
+             move of u0). Then
+             ThomasLabyrinth N=32 with the parareal model through
+             Parareal.run (K=30, the JAX package's on the CPU).
+7. serial    the runs' converged iterates against fine solves, slice by
+             slice (atol 2e-5, as tests/test_parareal.py holds the JAX
+             package): Burgers one slice after another from u0; FHN-PDE
+             and each Table-2 run with one kernel fan-out from the
+             converged starts.
 
 Then one JSON line describing each kernel, the card's name and power limit
 as nvidia-smi prints them, and as the last line
@@ -58,20 +76,56 @@ DEADLINE_S = LIMIT_S * 2 // 3
 FP64_PEAK = 34e12
 HBM_BYTES_PER_S = 3.35e12
 
+# an estimate of the per-slice kernel's serial chain: every f64 operation
+# of a thread's step waits for the one before it, 8 cycles each (Hopper's
+# dependent f64 latency, assumed) at the H100 SXM's 1.98 GHz boost clock
+CHAIN_S_PER_OP = 8 / 1.98e9
+
 FLAGSHIP = dict(d_x=128, N=128, T=5.9, Ng=4, Nf=40000, G="RK1", F="RK8",
                 eps=5e-7, nn=18, seed=45)
 FHN_PDE_DX = 16
 CHECK_STEPS = 200
 PLAIN_STEPS = 1000
+RAGGED = 37
 KERNEL_RTOL = 1e-12
 K_RANGE = (10, 14)
 FHN_PDE_K_RANGE = (4, 7)
 SERIAL_ATOL = 2e-5
 
+TABLE2_EPS = 5e-7
+# system: (its field, Parareal K, nnGP K range, nnGP K of the exact CPU
+# grid-search run), from PARITY.md:9-16 and tests/test_parity_slow.py:19-30.
+# Rossler's range also takes 11: the JAX package's own nnGP run reaches
+# K=11 when u0 moves by 4e-16 (tests/test_torch_table2.py:
+# test_rossler_nngp_k_under_the_control)
+TABLE2 = {
+    "FHN_ODE": ("fhn_ode", 11, (5, 5), 5),
+    "Rossler": ("rossler", 18, (11, 13), 13),
+    "Hopf_32": ("hopf", 19, (9, 10), 9),
+    "Brusselator": ("brusselator", 19, (16, 19), 18),
+    "Lorenz": ("lorenz", 15, (9, 10), 9),
+    "DblPend": ("dblpend", 15, (9, 11), 11),
+}
+# the ODE fields: the system and the N its Config takes (Table 2 runs Hopf
+# at N=32; ThomasLabyrinth's smallest N is 32)
+ODE_SYSTEMS = {"fhn_ode": ("FHNODE", None), "rossler": ("Rossler", None),
+               "hopf": ("Hopf", 32), "dblpend": ("DblPend", None),
+               "brusselator": ("Brusselator", None),
+               "lorenz": ("Lorenz", None), "tomlab": ("ThomasLabyrinth", 32)}
+# ThomasLabyrinth N=32, Parareal: the JAX package's K on the CPU
+# (tests/test_torch_table2.py:test_tomlab_parareal_k_of_the_jax_package)
+TOMLAB_K = 30
+HOPF_FINE_MULT = 10000  # run_hopf's fine steps: Config(N=512)'s Nf x 10000
+
 # f64 operations of one field evaluation, per thread of the kernel (one
-# grid point of Burgers, one cell of FHN-PDE with both species), counted
-# from csrc/rk_fanout.cu
-FIELD_OPS = {"burgers": 9, "fhn_pde": 29}
+# grid point of Burgers, one cell of FHN-PDE with both species, one slice
+# of an ODE), counted from csrc/rk_fanout.cu. An f64 sin or cos counts as
+# 20 (a range reduction and a polynomial of degree ~13 in CUDA's math
+# library, estimated). The ODE fields' [-1,1] map adds 5 per coordinate.
+FIELD_OPS = {"burgers": 9, "fhn_pde": 29, "fhn_ode": 10, "rossler": 7,
+             "hopf": 10, "dblpend": 26 + 4 * 20, "brusselator": 7,
+             "lorenz": 9, "tomlab": 3 * (3 + 20)}
+MAP_OPS = 5
 
 
 class PhaseError(RuntimeError):
@@ -138,6 +192,14 @@ def phase_build():
             "ptxas": ptxas_report(proc.stderr)}
 
 
+# the kernels' functors in their mangled names, and their fields
+PTXAS_FUNCTORS = (("FhnPdeField", "fhn_pde"), ("BurgersField", "burgers"),
+                  ("FhnOde", "fhn_ode"), ("Rossler", "rossler"),
+                  ("Hopf", "hopf"), ("DblPend", "dblpend"),
+                  ("Brusselator", "brusselator"), ("Lorenz", "lorenz"),
+                  ("ThomasLabyrinth", "tomlab"))
+
+
 def ptxas_report(text):
     """Registers and spills of each kernel instance, keyed by field and
     stage count, from ``-Xptxas -v`` output."""
@@ -147,7 +209,8 @@ def ptxas_report(text):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             stages = re.search(r"ILi(\d+)E", m.group(1))
-            field = "fhn_pde" if "FhnPdeField" in m.group(1) else "burgers"
+            field = next((name for functor, name in PTXAS_FUNCTORS
+                          if functor in m.group(1)), "?")
             key = f"{field}/{stages.group(1) if stages else '?'} stages"
             report[key] = {}
         elif key and "spill" in ln:
@@ -160,13 +223,42 @@ def ptxas_report(text):
 def flops_per_thread_step(tab, field):
     """f64 operations per kernel thread per RK step: one field evaluation
     per stage (9 for a Burgers point; 29 for an FHN-PDE cell: two 5-point
-    Laplacians of 9, the u1 reaction 7, the u2 reaction 4), and for each
-    state value of the thread 2 per nonzero a_ij and b_i and 2 for the
-    step update."""
+    Laplacians of 9, the u1 reaction 7, the u2 reaction 4; an ODE's field
+    and its [-1,1] map, FIELD_OPS), and for each state value of the thread
+    2 per nonzero a_ij and b_i and 2 for the step update."""
     nz_a = sum(1 for row in tab.a for x in row if x != 0.0)
     nz_b = sum(1 for x in tab.b if x != 0.0)
-    return (FIELD_OPS[field.name] * tab.stages
-            + field.values * (2 * nz_a + 2 * nz_b + 2))
+    ops = FIELD_OPS[field.name]
+    if getattr(field, "mn", None) is not None:
+        ops += MAP_OPS * field.values
+    return ops * tab.stages + field.values * (2 * nz_a + 2 * nz_b + 2)
+
+
+def bound(tab, field, B, d, steps):
+    """The least time of a fan-out: operations over the f64 peak, or bytes
+    (each input read once, the output written once) over the memory
+    rate, whichever is larger."""
+    threads = B * (d // field.values)
+    flops = threads * steps * flops_per_thread_step(tab, field)
+    nbytes = 8 * (2 * B + 2 * B * d + tab.stages * (tab.stages + 1))
+    flop_ms = flops / FP64_PEAK * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "flops": flops}
+
+
+def kernel_entry(field, max_abs_err, ms, plain_ms, plain_steps, B, d,
+                 steps, tab):
+    """A kernel's entry of the JSON line; its launches come from its
+    path's run."""
+    return {"name": f"rk_fanout[{field.name}]", "route": "cuda",
+            "source": "nngparareal_torch/csrc/rk_fanout.cu",
+            "replaces": "nngparareal_tpu/ops/rk_pallas.py:194",
+            "launches": None, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "plain_steps": plain_steps,
+            **bound(tab, field, B, d, steps), "library_ms": None,
+            "shape": [B, d], "steps": steps, "tableau": tab.name}
 
 
 def _event_ms(fn, reps, warm=True):
@@ -220,31 +312,106 @@ def check_kernel(state, ode, t0s, t1s, U, steps, ragged):
     # has already run its ops
     plain = make_batched_last_integrator(f, tab, PLAIN_STEPS)
     plain_ms = _event_ms(lambda: plain(t0s, t1s, U), reps=1, warm=False)
-    flops = B * (d // field.values) * steps * flops_per_thread_step(tab, field)
-    nbytes = 8 * (2 * B + 2 * B * d + tab.stages * (tab.stages + 1))
-    flop_ms = flops / FP64_PEAK * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    entry = {
-        "name": f"rk_fanout[{field.name}]",
-        "route": "cuda",
-        "source": "nngparareal_torch/csrc/rk_fanout.cu",
-        "replaces": "nngparareal_tpu/ops/rk_pallas.py:194",
-        "launches": None,  # filled in from the path's run
-        "max_abs_err": full["max_abs_err"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "plain_steps": PLAIN_STEPS,
-        "bound_ms": max(flop_ms, byte_ms),
-        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "library_ms": None,
-        "shape": [B, d],
-        "steps": steps,
-        "flops": flops,
-    }
+    entry = kernel_entry(field, full["max_abs_err"], ms, plain_ms,
+                         PLAIN_STEPS, B, d, steps, tab)
     state["kernels"][field.name] = entry
     return {"all": full, "ragged": part, "ms": ms, "steps": steps,
             "plain_ms": plain_ms, "plain_steps": PLAIN_STEPS,
-            "bound_ms": entry["bound_ms"], "flops": flops}
+            "bound_ms": entry["bound_ms"], "flops": entry["flops"]}
+
+
+def check_ode_kernel(state, kind):
+    """Hold an ODE field's kernel against its plain version at 200 steps,
+    with RK8 and the tableaus of its Table-2 path, at B = N, a ragged 37
+    and 1; time both at the path's fine shape; record the kernel's entry.
+    The plain version runs once per tableau over all the rows: its rows
+    are independent, so each B is held against its own rows of it."""
+    import numpy as np
+    import torch
+    import nngparareal_torch as nt
+    from nngparareal_torch.ops import rk_cuda
+    from nngparareal_torch.ops.butcher import get_tableau
+    from nngparareal_torch.ops.rk import make_batched_last_integrator
+
+    dev = state["device"]
+    cls, N_arg = ODE_SYSTEMS[kind]
+    ode = getattr(nt, cls)(normalization="-11", device=dev)
+    cfg = nt.Config(ode, N=N_arg).get()
+    field, f = ode.get_device_field(), ode.get_vector_field()
+    N, d = cfg["N"], ode.get_dim()
+    rows = max(N, RAGGED)
+    width = (cfg["tspan"][1] - cfg["tspan"][0]) / N
+    rng = np.random.default_rng(0)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    U = as_t(ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0, (rows, d)))
+    t0 = as_t(rng.uniform(cfg["tspan"][0], cfg["tspan"][1] - width, rows))
+    t1 = t0 + width
+    checks = {}
+    worst = 0.0
+    for name in dict.fromkeys(("RK8", cfg["G"], cfg["F"])):
+        tab = get_tableau(name)
+        want = make_batched_last_integrator(f, tab, CHECK_STEPS)(t0, t1, U)
+        scale = want.abs().max().item()
+        for B, lo, hi in ((N, 0, N), (RAGGED, rows - RAGGED, rows),
+                          (1, rows - 1, rows)):
+            got = rk_cuda.rk_fanout(t0[lo:hi], t1[lo:hi],
+                                    U[lo:hi].contiguous(), tab,
+                                    CHECK_STEPS, field, f)
+            abs_err = (got - want[lo:hi]).abs().max().item()
+            rel = abs_err / scale
+            if not (rel <= KERNEL_RTOL):
+                raise PhaseError(f"{kind} kernel vs plain, {name} at B={B}: "
+                                 f"max error {rel:.3e} of max|U| > "
+                                 f"{KERNEL_RTOL}")
+            checks[f"{name}/B={B}"] = abs_err
+            worst = max(worst, abs_err)
+    # the Table-2 fine fan-out: B = N slices, the full fine step count
+    tab, steps = get_tableau(cfg["F"]), cfg["Nf"]
+    Ub, t0b, t1b = U[:N].contiguous(), t0[:N], t1[:N]
+    ms = _event_ms(lambda: rk_cuda.rk_fanout(t0b, t1b, Ub, tab, steps,
+                                             field, f), reps=2)
+    plain_steps = min(PLAIN_STEPS, steps)
+    plain = make_batched_last_integrator(f, tab, plain_steps)
+    plain_ms = _event_ms(lambda: plain(t0b, t1b, Ub), reps=1, warm=False)
+    entry = kernel_entry(field, worst, ms, plain_ms, plain_steps, N, d,
+                         steps, tab)
+    entry["serial_chain_ms"] = (steps * flops_per_thread_step(tab, field)
+                                * CHAIN_S_PER_OP * 1e3)
+    state["kernels"][kind] = entry
+    info = {"max_abs_err": checks, "ms": ms, "B": N, "steps": steps,
+            "tableau": tab.name, "plain_ms": plain_ms,
+            "plain_steps": plain_steps, "bound_ms": entry["bound_ms"],
+            "serial_chain_ms": entry["serial_chain_ms"]}
+    if kind == "hopf":
+        entry["b512"] = info["b512"] = time_hopf512(state, ode, field, f)
+    return info
+
+
+def time_hopf512(state, ode, field, f):
+    """Hopf at run_hopf's size, the next ODE path: B=512 slices of
+    Config(N=512)'s width, its fine step count x 10 000, RK8; one launch
+    (seconds long), after the ones above."""
+    import numpy as np
+    import torch
+    import nngparareal_torch as nt
+    from nngparareal_torch.ops import rk_cuda
+    from nngparareal_torch.ops.butcher import get_tableau
+
+    dev = state["device"]
+    cfg = nt.Config(nt.Hopf(normalization="-11", device=dev), N=512).get()
+    tab, steps, B = get_tableau(cfg["F"]), cfg["Nf"] * HOPF_FINE_MULT, 512
+    t = np.linspace(cfg["tspan"][0], cfg["tspan"][1], B + 1)
+    rng = np.random.default_rng(1)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    U = as_t(ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0,
+                                                    (B, ode.get_dim())))
+    t0, t1 = as_t(t[:-1]), as_t(t[1:])
+    ms = _event_ms(lambda: rk_cuda.rk_fanout(t0, t1, U, tab, steps, field,
+                                             f), reps=1, warm=False)
+    return {"B": B, "steps": steps, "tableau": tab.name, "ms": ms,
+            **bound(tab, field, B, ode.get_dim(), steps),
+            "serial_chain_ms": (steps * flops_per_thread_step(tab, field)
+                                * CHAIN_S_PER_OP * 1e3)}
 
 
 def phase_kernels(state):
@@ -265,7 +432,8 @@ def phase_kernels(state):
                        device=dev)
     U = solver.run_G_chain(t, ode.get_init_cond())[:-1].contiguous()
     info["burgers"] = check_kernel(state, ode, t[:-1].contiguous(),
-                                   t[1:].contiguous(), U, cfg["Nf"], 37)
+                                   t[1:].contiguous(), U, cfg["Nf"],
+                                   RAGGED)
 
     # FHN-PDE: u0 plus a seeded perturbation, 512 slices of the
     # configuration's width (its coarse chain would take 512 coarse steps)
@@ -278,7 +446,11 @@ def phase_kernels(state):
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
     info["fhn_pde"] = check_kernel(state, p.ode, as_t(tt[:-1]),
                                    as_t(tt[1:]), as_t(Up).contiguous(),
-                                   p.solver.Nf, 37)
+                                   p.solver.Nf, RAGGED)
+
+    # the ODE fields of the one-thread-per-slice kernel
+    for kind in ODE_SYSTEMS:
+        info[kind] = check_ode_kernel(state, kind)
     return info
 
 
@@ -350,7 +522,6 @@ def profile_sweep(sweep, kept, N):
 
 
 def phase_flagship(state):
-    import numpy as np
     import torch
     import nngparareal_torch as nt
 
@@ -380,10 +551,7 @@ def phase_flagship(state):
             "sweep_ms_per_interval": 1e3 * per_interval,
             "warmup_s": tm["warmup_t"], "total_wall_s": tm["total_wall"],
             "fanout_launches": launches}
-    u = out["u"]
-    if u.shape != (cfg["N"] + 1, cfg["d_x"]) or not np.isfinite(u).all():
-        raise PhaseError(f"flagship iterates: shape {u.shape}, "
-                         f"finite={bool(np.isfinite(u).all())}")
+    check_iterates("flagship", p, out)
     if not out["converged"] or not K_RANGE[0] <= out["k"] <= K_RANGE[1]:
         raise PhaseError(f"flagship: converged={out['converged']} K="
                          f"{out['k']}, expected convergence with K in "
@@ -426,23 +594,13 @@ def sweep_stats(out, N):
 
 
 def phase_fhn_pde(state):
-    import numpy as np
     import torch
     from nngparareal_torch import experiments
     from nngparareal_torch.driver import Parareal
 
     dev = state["device"]
-    # keep the run's Parareal and its output: the summary rows hold no
-    # iterates, and the serial phase checks them
-    kept = {}
-    run = Parareal.run
-
-    def keep(self, *args, **kwargs):
-        out = run(self, *args, **kwargs)
-        kept["run"] = (self, out)
-        return out
-
-    Parareal.run = keep
+    kept = []
+    run = keep_runs(kept)
     try:
         zero_counts()
         rows = experiments.run_fhn_pde(
@@ -452,7 +610,7 @@ def phase_fhn_pde(state):
         launches = read_counts(state, "fhn_pde")
     finally:
         Parareal.run = run
-    p, out = kept["run"]
+    (p, out), = kept
     state["fhn_pde"] = (p, out)
     row = rows[0]
     tm = out["timings"]
@@ -468,16 +626,143 @@ def phase_fhn_pde(state):
             "est_serial_s": row["est_serial"], "calc_speedup": row["speedup"],
             "warmup_s": tm["warmup_t"], "total_wall_s": tm["total_wall"],
             "fanout_launches": launches}
-    u = out["u"]
-    if u.shape != (p.N + 1, p.n) or not np.isfinite(u).all():
-        raise PhaseError(f"fhn_pde iterates: shape {u.shape}, "
-                         f"finite={bool(np.isfinite(u).all())}")
+    check_iterates("fhn_pde", p, out)
     lo, hi = FHN_PDE_K_RANGE
     if not row["converged"] or not lo <= row["k"] <= hi:
         raise PhaseError(f"fhn_pde: converged={row['converged']} K="
                          f"{row['k']}, expected convergence with K in "
                          f"{list(FHN_PDE_K_RANGE)}")
     return info
+
+
+def keep_runs(kept):
+    """Make Parareal.run append (its Parareal, its output) to ``kept``:
+    the drivers' summary rows hold no iterates, and the serial phase
+    checks them. Returns the unwrapped run."""
+    from nngparareal_torch.driver import Parareal
+
+    run = Parareal.run
+
+    def keep(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        kept.append((self, out))
+        return out
+
+    Parareal.run = keep
+    return run
+
+
+def run_info(out, N):
+    """K, conv_int, the runtime and its split of one run."""
+    tm = out["timings"]
+    intervals, per_interval = sweep_stats(out, N)
+    return {"K": out["k"], "converged": out["converged"],
+            "conv_int": out["conv_int"], "runtime_s": tm["runtime"],
+            "fine_s": tm["F_time"], "model_s": tm["mdl_pred_t"],
+            "coarse_s": tm["G_time"], "coarse_init_s": tm["G_init_time"],
+            "sweep_s": tm["sweep_time"], "intervals": intervals,
+            "sweep_ms_per_interval": 1e3 * per_interval}
+
+
+def check_iterates(name, p, out):
+    """A run's iterates: (N + 1, d), all finite."""
+    import numpy as np
+
+    u = out["u"]
+    if u.shape != (p.N + 1, p.n) or not np.isfinite(u).all():
+        raise PhaseError(f"{name} iterates: shape {u.shape}, "
+                         f"finite={bool(np.isfinite(u).all())}")
+
+
+def phase_table2(state):
+    import torch
+    from nngparareal_torch import experiments
+    from nngparareal_torch.driver import Parareal
+    from nngparareal_torch.ops import rk_cuda
+
+    dev = state["device"]
+    # each system's launches: the counts set to 0 just before it runs and
+    # read just after
+    per_system = experiments._run_table2_system
+    counts = {}
+
+    def counted(*args, **kwargs):
+        zero_counts()
+        row = per_system(*args, **kwargs)
+        torch.cuda.synchronize()
+        counts[row["system"]] = dict(rk_cuda.rk_fanout.launches_by_field)
+        return row
+
+    kept = []
+    run = keep_runs(kept)
+    experiments._run_table2_system = counted
+    try:
+        rows = experiments.run_table2(
+            TABLE2_EPS, models=("parareal", "nngp"), results_dir=None,
+            nngp_kw=dict(optimizer="grid"), device=dev)
+    finally:
+        experiments._run_table2_system = per_system
+        Parareal.run = run
+    if [r["system"] for r in rows] != list(TABLE2):
+        raise PhaseError(f"table2 ran {[r['system'] for r in rows]}")
+    info = {}
+    failures = []
+    for row, runs in zip(rows, zip(kept[0::2], kept[1::2])):
+        system = row["system"]
+        field, bare_k, (lo, hi), grid_k = TABLE2[system]
+        launches = counts[system]
+        others = {k: v for k, v in launches.items() if k != field and v}
+        if launches[field] < 1 or others:
+            raise PhaseError(f"{system}: its path must launch the {field} "
+                             f"kernel and no other: {launches}")
+        state["kernels"][field]["launches"] = launches[field]
+        sys_info = {"launches": launches[field]}
+        for (p, out), model in zip(runs, ("parareal", "nngp")):
+            check_iterates(f"{system} {model}", p, out)
+            sys_info[model] = run_info(out, p.N)
+            state.setdefault("table2", []).append((f"{system} {model}", p,
+                                                   out))
+            k = out["k"]
+            ok = out["converged"] and (
+                k == bare_k if model == "parareal" else lo <= k <= hi)
+            if not ok:
+                failures.append(f"{system} {model}: converged="
+                                f"{out['converged']} K={k}")
+        sys_info["nngp_K_vs_cpu_grid"] = sys_info["nngp"]["K"] - grid_k
+        info[system] = sys_info
+    if failures:
+        raise PhaseError("table2 K outside its limits: "
+                         + "; ".join(failures))
+    info["ThomasLabyrinth_32"] = run_tomlab(state)
+    return info
+
+
+def run_tomlab(state):
+    """ThomasLabyrinth N=32 (tspan [0, 10], RK1 x10 / RK4 x31 250 per
+    slice) with the parareal model: the path of the tomlab field's kernel.
+    Its K must be the JAX package's on the CPU (30)."""
+    import torch
+    import nngparareal_torch as nt
+
+    dev = state["device"]
+    ode = nt.ThomasLabyrinth(normalization="-11", device=dev)
+    cfg = nt.Config(ode, N=32).get()
+    solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
+                         G=cfg["G"], F=cfg["F"],
+                         device_field=ode.get_device_field(), device=dev)
+    p = nt.Parareal(ode, solver, cfg["tspan"], cfg["N"], epsilon=TABLE2_EPS,
+                    verbose=None, device=dev)
+    zero_counts()
+    out = p.run(model="parareal")
+    torch.cuda.synchronize()
+    launches = read_counts(state, "tomlab")
+    check_iterates("ThomasLabyrinth_32", p, out)
+    if not out["converged"] or out["k"] != TOMLAB_K:
+        raise PhaseError(f"ThomasLabyrinth_32 parareal: converged="
+                         f"{out['converged']} K={out['k']}, expected "
+                         f"{TOMLAB_K}")
+    state["table2"].append(("ThomasLabyrinth_32 parareal", p, out))
+    return {"launches": launches, "parareal": run_info(out, p.N)}
 
 
 def phase_serial(state):
@@ -515,6 +800,24 @@ def phase_serial(state):
         raise PhaseError(f"fhn_pde vs fine solves from the converged starts:"
                          f" max |du| {err:.3e} > {SERIAL_ATOL}")
     info["fhn_pde"] = {"max_abs_diff": err, "fanout_s": fan_s}
+    info["table2"] = serial_table2(state)
+    return info
+
+
+def serial_table2(state):
+    """Each Table-2 run's converged iterates against one kernel fan-out
+    from its converged starts."""
+    import numpy as np
+
+    info = {}
+    for name, p, out in state["table2"]:
+        t, u = out["t"], out["u"]
+        ends = p.solver.run_F_batch(t[:-1], t[1:], u[:-1]).cpu().numpy()
+        err = float(np.abs(ends - u[1:]).max())
+        if not err <= SERIAL_ATOL:
+            raise PhaseError(f"{name} vs fine solves from the converged "
+                             f"starts: max |du| {err:.3e} > {SERIAL_ATOL}")
+        info[name] = err
     return info
 
 
@@ -557,6 +860,7 @@ def main():
         phases.run("kernels", phase_kernels, state)
         phases.run("flagship", phase_flagship, state)
         phases.run("fhn_pde", phase_fhn_pde, state)
+        phases.run("table2", phase_table2, state)
         phases.run("serial", phase_serial, state)
     except Exception as exc:  # report the phase, exit nonzero
         signal.alarm(0)

@@ -6,21 +6,34 @@ Port of ``nngparareal_tpu/experiments.py`` for the runs the port can do:
   N=512, nnGP nn=20), with the scaling driver's fine step count
   Nf = ceil(1e8 / Ng_tot) * Ng_tot / N; ``fhn_pde_parareal`` builds its
   Parareal.
+* ``run_table2`` -- iterations to convergence of the paper's Table 2: six
+  ODE systems (FHN, Rossler, Hopf N=32, Brusselator, Lorenz, DblPend) at
+  their published configurations, nnGP with the neighbour count of each
+  system and tolerance (``_TABLE2_SYSTEMS``).
 
 Each model runs in turn on the card (``device=None``) or wherever
-``device`` says; ``results_dir`` receives the pickled summary rows. Not
-ported yet (ROADMAP.md): the GParareal model ``gpjax`` that
-``MODELS_DEFAULT`` names, which is refused before anything runs; the
-``mesh`` argument (multi-GPU slice sharding); ``run_hopf``,
-``run_tomlab``, ``run_burgers``, ``run_table2`` and the command line.
+``device`` says; ``results_dir`` receives the pickled summary rows.
+
+The nnGP search is named through ``nngp_kw`` (``dict(optimizer='grid')``):
+the JAX package's default, Nelder-Mead, is not ported, and an nnGP run
+that names no optimizer is refused before any model runs. The JAX
+``run_table2`` has no ``nngp_kw`` (its nnGP always runs Nelder-Mead); the
+port's takes it as both packages' ``run_fhn_pde`` do. Not ported yet
+(ROADMAP.md): the GParareal model ``gpjax`` that ``MODELS_DEFAULT`` names,
+which is refused before anything runs; the ``mesh`` argument (multi-GPU
+slice sharding) and ``run_table2``'s process ``pool``, both refused;
+``run_hopf``, ``run_tomlab``, ``run_burgers`` and the command line.
 """
 
 import numpy as np
 
 from nngparareal_torch.driver import Parareal
+from nngparareal_torch.models import NNGParareal
 from nngparareal_torch.reporting import calc_speedup, est_serial
 from nngparareal_torch.solver import RKSolver
-from nngparareal_torch.systems import FHNPDE
+from nngparareal_torch.systems import (
+    FHNODE, Rossler, Hopf, DblPend, Brusselator, Lorenz, FHNPDE,
+)
 from nngparareal_torch.systems.configs import Config
 from nngparareal_torch.utils.io import store_pickle
 
@@ -52,6 +65,8 @@ def _run_models(p, model_kwargs, models, results_dir, tag, nngp_kw=None,
         raise NotImplementedError(
             f"models {missing} are not ported yet (ROADMAP.md, modules still "
             f"to port); the port runs {list(_PORTED_MODELS)}")
+    if "nngp" in models:
+        NNGParareal.check_optimizer((nngp_kw or {}).get("optimizer"))
     rows = []
     for mdl in models:
         kw = dict(common)
@@ -97,3 +112,62 @@ def run_fhn_pde(dx, models=MODELS_DEFAULT, results_dir="results",
         p, model_kwargs, models, results_dir, f"fhn_pde_{dx}",
         store_int=store_int, nngp_kw=nngp_kw,
     )
+
+
+_TABLE2_SYSTEMS = [
+    # (ctor, nn at 5e-7, nn at 5e-9), as the JAX package's table
+    (FHNODE, 15, 13),
+    (Rossler, 15, 13),
+    (Hopf, 15, 12),
+    (Brusselator, 14, 12),
+    (Lorenz, 14, 13),
+    (DblPend, 15, 14),
+]
+
+
+def _run_table2_system(idx, epsilon, models, device=None, nngp_kw=None):
+    """One whole-system Table-2 run at its published configuration (Hopf
+    at N=32); returns {system, epsilon, nn, runs}."""
+    ctor, nn7, nn9 = _TABLE2_SYSTEMS[idx]
+    nn = nn7 if epsilon == 5e-7 else nn9
+    ode = ctor(normalization="-11", device=device)
+    N_arg = 32 if isinstance(ode, Hopf) else None
+    cfg = Config(ode, N=N_arg).get()
+    solver = RKSolver(
+        ode.get_vector_field(), cfg["Ng"], cfg["Nf"], G=cfg["G"], F=cfg["F"],
+        device_field=ode.get_device_field(), device=device,
+    )
+    p = Parareal(ode, solver, cfg["tspan"], cfg["N"], epsilon=epsilon,
+                 device=device)
+    model_kwargs = {"nngp": dict(nn=nn)}
+    sys_rows = _run_models(p, model_kwargs, models, None, "",
+                           nngp_kw=nngp_kw)
+    return {"system": ode.name, "epsilon": epsilon, "nn": nn,
+            "runs": sys_rows}
+
+
+def run_table2(epsilon=5e-7, models=MODELS_DEFAULT, results_dir="results",
+               mesh=None, systems=None, pool=None, device=None,
+               nngp_kw=None):
+    """Iterations to convergence across the six ODE systems of Table 2,
+    one system after another; returns one row per system.
+
+    ``systems``: optional subset of system names (e.g. ["FHN_ODE"]).
+    ``nngp_kw``: the nnGP's overrides; it must name the search
+    (``dict(optimizer='grid')``), which the JAX ``run_table2`` does not
+    take. ``mesh`` and ``pool`` are not ported and raise."""
+    if mesh is not None or pool:
+        raise NotImplementedError(
+            "run_table2's mesh= (multi-GPU slice sharding) and pool= (a "
+            "process per system) are not ported yet (ROADMAP.md, modules "
+            "still to port, item 9)")
+    sel = [i for i, (ctor, _, _) in enumerate(_TABLE2_SYSTEMS)
+           if systems is None
+           or ctor(normalization="-11", device=device).name in systems]
+    rows = []
+    for i in sel:
+        rows.append(_run_table2_system(i, epsilon, tuple(models),
+                                       device=device, nngp_kw=nngp_kw))
+        if results_dir:
+            store_pickle(rows, f"table2_eps{epsilon:g}.pkl", results_dir)
+    return rows

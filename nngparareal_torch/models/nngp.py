@@ -6,7 +6,9 @@ NLL selection and the Cholesky posterior. For every prediction point the m
 nearest dataset rows (squared euclidean) form a local GP per state
 coordinate (log10-scale SE kernel); hyperparameters come from a dense
 (theta x jitter) grid of NLL scores, a walk and halving refinement, a
-jitter re-scan and one polish round.
+jitter re-scan and one polish round. A caller names the search: the JAX
+package defaults to Nelder-Mead, which the port does not have yet, so a
+call without ``optimizer`` is refused (``check_optimizer``).
 
 Every step queues torch ops on the dataset's device and reads nothing back
 to the host, so the driver's sweep over intervals never waits on the card.
@@ -30,14 +32,9 @@ _GRID_REFINE = 2
 class NNGParareal(ModelBase):
     name = "NNGP"
 
-    def __init__(self, n, N, nn, seed=45, optimizer="grid"):
+    def __init__(self, n, N, nn, seed=45, optimizer=None):
         super().__init__(n, N)
-        if optimizer != "grid":
-            # the JAX package's Nelder-Mead search waits for later work:
-            # refuse it rather than run something else under its name
-            raise NotImplementedError(
-                f"NNGParareal optimizer={optimizer!r} is not ported yet "
-                "(ROADMAP.md, modules still to port, item 8)")
+        self.check_optimizer(optimizer)
         self.nn = int(nn)
         self.seed = int(seed)
         # host generators kept only so checkpoints carry the same model
@@ -45,6 +42,22 @@ class NNGParareal(ModelBase):
         self.rng = np.random.default_rng(self.seed)
         self.rng2 = np.random.default_rng(self.seed)
         self.k = 0
+
+    @staticmethod
+    def check_optimizer(optimizer):
+        """Refuse every search but the grid. The JAX package's default,
+        Nelder-Mead (``optimizer='nm'``), waits for later work, so a call
+        that names no optimizer raises instead of running the grid search
+        under the JAX default's name."""
+        if optimizer is None:
+            raise NotImplementedError(
+                "NNGParareal needs optimizer='grid': the JAX package's "
+                "default, optimizer='nm' (Nelder-Mead), is not ported yet "
+                "(ROADMAP.md, modules still to port, item 4)")
+        if optimizer != "grid":
+            raise NotImplementedError(
+                f"NNGParareal optimizer={optimizer!r} is not ported yet "
+                "(ROADMAP.md, modules still to port, item 4)")
 
     # --- model protocol ---
 

@@ -5,7 +5,13 @@ Replaces the Pallas TPU kernel ``nngparareal_tpu/ops/rk_pallas.py``
 step inside one launch, computed in native f64 on the card. The Pallas
 kernel traced any JAX field; this one has a device form of each field it
 serves, and a system hands it that field's constants
-(``ode.get_device_field()``): ``BurgersField`` or ``FhnPdeField``.
+(``ode.get_device_field()``):
+
+* ``BurgersField`` and ``FhnPdeField``, the PDE fields (d >= 64): one
+  block per slice, one thread per grid cell;
+* ``OdeField``, the seven d < 64 ODE fields (``ODE_DIMS``): one thread per
+  slice. The solver also launches it at B=1 for each coarse solve of these
+  systems (solver.py:RKSolver.coarse_step_raw).
 
 Build and binding: ``nvcc`` compiles the source into a shared library with
 a plain C interface the first time the kernel is needed, into
@@ -95,7 +101,120 @@ class FhnPdeField:
                 self.inv_tau)
 
 
-FIELDS = (BurgersField, FhnPdeField)
+# the ODE fields of the one-thread-per-slice kernel: kind -> state
+# dimension; each kind is a functor in csrc/rk_fanout.cu and the
+# ``device_kind`` of a system in systems/odes.py
+ODE_DIMS = {"fhn_ode": 2, "rossler": 3, "hopf": 3, "dblpend": 4,
+            "brusselator": 2, "lorenz": 3, "tomlab": 3}
+
+
+# plain torch transcriptions of the kernel's raw ODE functors:
+# (u, consts) -> the field's components (``OdeField.evaluate``)
+
+
+def _fhn_ode(u, c):
+    u0, u1 = u.unbind(-1)
+    return [3.0 * (u0 - (u0 * u0 * u0) / 3.0 + u1),
+            -(1.0 / 3.0) * (u0 - 0.2 + 0.2 * u1)]
+
+
+def _rossler(u, c):
+    u0, u1, u2 = u.unbind(-1)
+    return [-u1 - u2, u0 + 0.2 * u1, 0.2 + u2 * (u0 - 5.7)]
+
+
+def _hopf(u, c):
+    u0, u1, u2 = u.unbind(-1)
+    mu = u2 / c[0] - u0 * u0 - u1 * u1
+    return [-u1 + u0 * mu, u0 + u1 * mu, torch.ones_like(mu)]
+
+
+def _dblpend(u, c):
+    u0, u1, u2, u3 = u.unbind(-1)
+    cd, sd = torch.cos(u0 - u2), torch.sin(u0 - u2)
+    sin0, sin2 = torch.sin(u0), torch.sin(u2)
+    sq1, sq3 = u1 * u1, u3 * u3
+    den = -1.0 / (2.0 - cd * cd)
+    return [u1, den * (sq1 * cd * sd + sq3 * sd + 2.0 * sin0 - cd * sin2),
+            u3, den * (-2.0 * sq1 * sd - sq3 * sd * cd - 2.0 * cd * sin0
+                       + 2.0 * sin2)]
+
+
+def _brusselator(u, c):
+    u0, u1 = u.unbind(-1)
+    sq0_u1 = u0 * u0 * u1
+    return [1.0 + sq0_u1 - 4.0 * u0, 3.0 * u0 - sq0_u1]
+
+
+def _lorenz(u, c):
+    u0, u1, u2 = u.unbind(-1)
+    return [10.0 * (u1 - u0), 28.0 * u0 - u1 - u0 * u2,
+            u0 * u1 - (8.0 / 3.0) * u2]
+
+
+def _tomlab(u, c):
+    x = u.unbind(-1)
+    return [-0.5 * x[i] + 10.0 * torch.sin(x[(i + 1) % 3]) for i in range(3)]
+
+
+_PLAIN_RAW = {"fhn_ode": _fhn_ode, "rossler": _rossler, "hopf": _hopf,
+              "dblpend": _dblpend, "brusselator": _brusselator,
+              "lorenz": _lorenz, "tomlab": _tomlab}
+
+
+@dataclass(frozen=True)
+class OdeField:
+    """A d < 64 ODE field as the one-thread-per-slice kernel takes it: the
+    functor's kind (a key of ``ODE_DIMS``), its constants (Hopf: the end
+    of its tspan) and the normalisation's affine map per coordinate (mn,
+    span = mx - mn, scale), or None for each of the three for the raw
+    field (systems/base.py:ODE.get_device_field). One thread per slice:
+    it carries all d values of the state."""
+
+    name: str
+    consts: tuple = ()
+    mn: tuple = None
+    span: tuple = None
+    scale: tuple = None
+
+    def __post_init__(self):
+        if self.name not in ODE_DIMS:
+            raise ValueError(f"the kernel has no ODE field {self.name!r}")
+
+    @property
+    def values(self):
+        """State values per thread: the whole state of a slice."""
+        return ODE_DIMS[self.name]
+
+    def grid(self, d):
+        """The C entry point's grid arguments (none) for d values."""
+        if d != self.values:
+            raise ValueError(f"the {self.name} field has d={self.values}, "
+                             f"got d={d}")
+        return ()
+
+    def constants(self):
+        """The map, as a host array of 3*d f64 values (NULL for the
+        identity), then the field's own constants."""
+        if self.mn is None:
+            return (None, *self.consts)
+        vals = (*self.mn, *self.span, *self.scale)
+        return ((ctypes.c_double * len(vals))(*vals), *self.consts)
+
+    def evaluate(self, u):
+        """The field at states u (..., d), computed in plain torch from this
+        field's constants alone, as the kernel's functor computes it."""
+        raw = lambda x: torch.stack(_PLAIN_RAW[self.name](x, self.consts),
+                                    dim=-1)
+        if self.mn is None:
+            return raw(u)
+        mn, span, scale = (torch.tensor(x, dtype=u.dtype, device=u.device)
+                           for x in (self.mn, self.span, self.scale))
+        return raw((u + 1.0) / 2.0 * span + mn) * scale
+
+
+FIELDS = (BurgersField, FhnPdeField, OdeField)
+FIELD_NAMES = ("burgers", "fhn_pde", *ODE_DIMS)
 
 
 def find_nvcc():
@@ -153,8 +272,8 @@ def build(timeout=600.0):
 
 @functools.cache
 def _library():
-    """The C entry point of each field: (t0s, t1s, U, out, tab, stages, B,
-    <field's grid>, steps, <field's constants>, stream)."""
+    """The C entry point of each field, by name: (t0s, t1s, U, out, tab,
+    stages, B, <field's grid>, steps, <field's constants>, stream)."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     head = [p, p, p, p, p, i, i]
@@ -162,9 +281,24 @@ def _library():
     burgers.argtypes = head + [i, ctypes.c_longlong, f, f, p]
     fhn_pde = lib.rk_fanout_fhn_pde_launch
     fhn_pde.argtypes = head + [i, i, ctypes.c_longlong, f, f, f, f, f, f, p]
-    for fn in (burgers, fhn_pde):
+    fns = {"burgers": burgers, "fhn_pde": fhn_pde}
+    for kind in ODE_DIMS:
+        fn = getattr(lib, f"rk_slice_{kind}_launch")
+        consts = [f] if kind == "hopf" else []
+        fn.argtypes = (head + [ctypes.c_longlong, ctypes.POINTER(f)] + consts
+                       + [p])
+        fns[kind] = fn
+    for fn in fns.values():
         fn.restype = ctypes.c_int
-    return {"burgers": burgers, "fhn_pde": fhn_pde}
+    return fns
+
+
+@functools.cache
+def _device_coefficients(tab, device):
+    """The flat tableau on ``device``, copied there once per (tableau,
+    device): a fan-out launched once per sweep interval copies nothing."""
+    return torch.tensor(flat_coefficients(tab), dtype=torch.float64,
+                        device=device)
 
 
 def _check(name, x, shape, device):
@@ -184,7 +318,8 @@ def rk_fanout(t0s, t1s, U, tableau, steps, field, f):
     """U(t1) for B slices: ``steps`` fixed RK steps of the field per slice.
 
     t0s, t1s: (B,) f64; U: (B, d) f64 contiguous. ``field`` is the device
-    field the kernel takes (``BurgersField`` or ``FhnPdeField``); ``f`` is
+    field the kernel takes (``BurgersField``, ``FhnPdeField`` or
+    ``OdeField``); ``f`` is
     the same system's torch vector field (``ode.get_vector_field()``),
     which the plain version integrates for CPU tensors. Each slice steps
     with its own h = (t1s[b] - t0s[b]) / steps.
@@ -216,8 +351,7 @@ def rk_fanout(t0s, t1s, U, tableau, steps, field, f):
     if B == 0:
         return out
     launch = _library()[field.name]
-    coefs = torch.tensor(flat_coefficients(tab), dtype=torch.float64,
-                         device=U.device)
+    coefs = _device_coefficients(tab, U.device)
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream(U.device).cuda_stream
         rc = launch(t0s.data_ptr(), t1s.data_ptr(), U.data_ptr(),
@@ -231,4 +365,4 @@ def rk_fanout(t0s, t1s, U, tableau, steps, field, f):
 
 
 rk_fanout.launches = 0
-rk_fanout.launches_by_field = {cls.name: 0 for cls in FIELDS}
+rk_fanout.launches_by_field = dict.fromkeys(FIELD_NAMES, 0)

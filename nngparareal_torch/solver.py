@@ -10,7 +10,11 @@ Port of ``nngparareal_tpu/solver.py:RKSolver``:
 
 Step counts Ng/Nf are per slice. The fine fan-out runs as the CUDA kernel
 (ops/rk_cuda.py) or as the plain torch f64 integrator (ops/rk.py), chosen
-by ``fine`` (see ``select_fine_mode``).
+by ``fine`` (see ``select_fine_mode``). On a card, an ODE's coarse solves
+(``coarse_step_raw``, ``run_G_chain``) launch the same kernel at B=1 with
+the coarse tableau: one launch per solve in place of a host loop of torch
+ops per RK step. The PDE fields keep the torch coarse step, and the CPU
+runs keep it for every system.
 """
 
 import torch
@@ -74,6 +78,10 @@ class RKSolver(SolverAbstr):
         if fine == "cuda" and device_field is None:
             raise ValueError("fine='cuda' requires device_field")
         self.fine = fine
+        # the coarse solves through the kernel: an ODE field on a card
+        self.coarse_kernel = (fine == "cuda" and self.device.type == "cuda"
+                              and isinstance(device_field, rk_cuda.OdeField))
+        self._coarse_bounds = {}
 
         self._coarse_last = make_last_integrator(f, self.G, self.Ng,
                                                  self.thresh)
@@ -114,9 +122,20 @@ class RKSolver(SolverAbstr):
         return self._fine_plain(t0s, t1s, U)
 
     def coarse_step_raw(self, t0, dt_slice, u0):
-        """One-slice coarse solve (called by the corrector sweep)."""
-        dt = dt_slice / self.Ng
-        return integrate_last(self.f, self.G, t0, dt, self.Ng, u0)
+        """One-slice coarse solve (called by the corrector sweep).
+
+        Through the kernel, the slice runs from 0 to dt_slice (the fields
+        are autonomous), so that its step is dt_slice / Ng as in the torch
+        integrator; those bounds are made on the card once per dt_slice."""
+        if not self.coarse_kernel:
+            dt = dt_slice / self.Ng
+            return integrate_last(self.f, self.G, t0, dt, self.Ng, u0)
+        bounds = self._coarse_bounds.get(dt_slice)
+        if bounds is None:
+            bounds = self._coarse_bounds[dt_slice] = (
+                self._t([0.0]), self._t([dt_slice]))
+        return rk_cuda.rk_fanout(*bounds, u0[None], self.G, self.Ng,
+                                 self.device_field, self.f)[0]
 
     @torch.inference_mode()
     def run_G_chain(self, t, u0):

@@ -1,5 +1,15 @@
 from nngparareal_torch.systems.base import ODE
-from nngparareal_torch.systems.odes import FHNODE
+from nngparareal_torch.systems.odes import (
+    FHNODE,
+    Rossler,
+    Hopf,
+    DblPend,
+    Brusselator,
+    Lorenz,
+    ThomasLabyrinth,
+)
 from nngparareal_torch.systems.pdes import FHNPDE, Burgers
+from nngparareal_torch.systems.registry import make_system
 
-__all__ = ["ODE", "FHNODE", "FHNPDE", "Burgers"]
+__all__ = ["ODE", "FHNODE", "Rossler", "Hopf", "DblPend", "Brusselator",
+           "Lorenz", "ThomasLabyrinth", "FHNPDE", "Burgers", "make_system"]

@@ -7,7 +7,9 @@ so the same function serves one state (d,) and a batch of slices (B, d).
 
 A system that the CUDA fan-out kernel can integrate also returns a
 *device field* (``get_device_field``): the kernel cannot run an arbitrary
-Python field, so it takes the field's constants instead.
+Python field, so it takes the field's constants instead. An ODE names its
+functor in the kernel (``device_kind``), and hands over its constants and
+its normalisation map.
 """
 
 import numpy as np
@@ -49,10 +51,34 @@ class ODE:
 
         return f_normalized
 
+    # the fan-out kernel's one-thread-per-slice functor of this system's
+    # field (ops/rk_cuda.py:ODE_DIMS), or None
+    device_kind = None
+
+    def device_constants(self):
+        """The field's constants that the kernel's functor takes."""
+        return ()
+
     def get_device_field(self):
-        """Constants of the field for the CUDA fan-out kernel, or None
-        when the kernel has no form of this system's field yet."""
-        return None
+        """The field as the CUDA fan-out kernel takes it, or None when the
+        kernel has no form of this system's field yet.
+
+        For an ODE with a ``device_kind``: the functor's kind, its
+        constants and the normalisation's affine map per coordinate (mn,
+        span = mx - mn, scale), the values ``get_vector_field`` computes
+        with; None for the identity map."""
+        if self.device_kind is None:
+            return None
+        from nngparareal_torch.ops.rk_cuda import OdeField
+
+        norm = self.normalizer
+        affine = {}
+        if not norm.is_identity:
+            affine = dict(mn=tuple(norm.mn.tolist()),
+                          span=tuple((norm.mx - norm.mn).tolist()),
+                          scale=tuple(norm.get_scale().tolist()))
+        return OdeField(self.device_kind, tuple(self.device_constants()),
+                        **affine)
 
     def set_default_init_cond(self, u0):
         self.u0 = np.asarray(self.normalizer.fit(np.asarray(u0, dtype=float)))

@@ -1,15 +1,24 @@
 """Canonical per-system run parameters from the paper.
 
 Port of ``nngparareal_tpu/systems/configs.py`` for the systems the port
-has: FHN ODE, FHN-PDE and Burgers. ``Config(ode).get()`` yields {tspan,
-u0, N, Ng, Nf, G, F} with per-slice step counts Ng/Nf (and ``epsilon`` for
-FHN-PDE).
+has: the seven ODEs, FHN-PDE and Burgers. ``Config(ode).get()`` yields
+{tspan, u0, N, Ng, Nf, G, F} with per-slice step counts Ng/Nf (and
+``epsilon`` for FHN-PDE). Hopf and ThomasLabyrinth need ``N``, and their
+Config appends ``_{N}`` to the system's name, as in the JAX package.
 """
 
 import numpy as np
 
 from nngparareal_torch.systems.base import ODE
-from nngparareal_torch.systems.odes import FHNODE
+from nngparareal_torch.systems.odes import (
+    FHNODE,
+    Rossler,
+    Hopf,
+    DblPend,
+    Brusselator,
+    Lorenz,
+    ThomasLabyrinth,
+)
 from nngparareal_torch.systems.pdes import FHNPDE, Burgers
 
 
@@ -19,6 +28,20 @@ class Config:
     def __init__(self, ode: ODE, N=None, d_x=None):
         if isinstance(ode, FHNODE):
             cfg = self._fhn_ode()
+        elif isinstance(ode, Rossler):
+            cfg = self._rossler()
+        elif isinstance(ode, Hopf):
+            cfg = self._hopf(N)
+            ode.name += f"_{N}"
+        elif isinstance(ode, DblPend):
+            cfg = self._pend()
+        elif isinstance(ode, Brusselator):
+            cfg = self._brus()
+        elif isinstance(ode, Lorenz):
+            cfg = self._lorenz()
+        elif isinstance(ode, ThomasLabyrinth):
+            cfg = self._tomlab(N)
+            ode.name += f"_{N}"
         elif isinstance(ode, FHNPDE):
             cfg = self._fhn_pde(d_x)
         elif isinstance(ode, Burgers):
@@ -41,6 +64,68 @@ class Config:
         return dict(
             tspan=[0, 40], u0=np.array([-1.0, 1.0]), N=N, Ng=Ng / N, Nf=Nf / N,
             G="RK2", F="RK4",
+        )
+
+    @staticmethod
+    def _rossler():
+        N, Ng, Nf = 20, 45000, 2250000
+        return dict(
+            tspan=[0, 340], u0=np.array([0.0, -6.78, 0.02]), N=N * 2,
+            Ng=2 * Ng / (2 * N), Nf=2 * Nf / (2 * N), G="RK1", F="RK4",
+        )
+
+    @staticmethod
+    def _hopf(N):
+        if N is None:
+            raise Exception("N must be provided for Hopf")
+        Ng = 2 * 1024
+        Nf = Ng * 85
+        return dict(
+            tspan=[-20, 500], u0=np.array([0.1, 0.1, -20.0]), N=N,
+            Ng=Ng / N, Nf=Nf / N, G="RK1", F="RK8",
+        )
+
+    @staticmethod
+    def _pend():
+        N = 32
+        Ng = 3072 + N
+        Nf = Ng * 70
+        return dict(
+            tspan=[0, 80], u0=np.array([-0.5, 0.0, 0.0, 0.0]), N=N,
+            Ng=Ng / N, Nf=Nf / N, G="RK1", F="RK8",
+        )
+
+    @staticmethod
+    def _brus():
+        N = 25
+        Ng = N * 10
+        Nf = Ng * 100
+        return dict(
+            tspan=[0, 100], u0=np.array([1.0, 3.07]), N=N,
+            Ng=Ng / N, Nf=Nf / N, G="RK4", F="RK4",
+        )
+
+    @staticmethod
+    def _lorenz():
+        N = 50
+        Ng = N * 6
+        Nf = Ng * 75
+        return dict(
+            tspan=[0, 18], u0=np.array([-15.0, -15.0, 20.0]), N=N,
+            Ng=Ng / N, Nf=Nf / N, G="RK4", F="RK4",
+        )
+
+    @staticmethod
+    def _tomlab(N):
+        tot_time = {32: 10, 64: 10, 128: 40, 256: 100, 512: 100}.get(N)
+        if tot_time is None:
+            raise Exception("Invalid N value for ThomasLabyrinth")
+        Ng = N * 10
+        Nf = Ng * int(np.ceil(1e6 / Ng))
+        u0 = np.array([4.6722764, 5.2437205e-10, -6.4444208e-10])
+        return dict(
+            tspan=[0, tot_time], u0=u0, N=N, Ng=Ng / N, Nf=Nf / N,
+            G="RK1", F="RK4",
         )
 
     @staticmethod

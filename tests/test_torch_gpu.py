@@ -1,13 +1,20 @@
 """The CUDA fine fan-out kernel against its plain torch version, on the
-card, for both fields it has: Burgers and FHN-PDE. Run on a machine with
+card, for every field it has: Burgers and FHN-PDE (one thread per cell),
+and the seven ODE fields (one thread per slice). Run on a machine with
 one: ``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
 Without a card every test here skips.
 
 Whether a card exists is decided inside each test (never at import or in a
 ``skipif``), so every pytest-xdist worker collects the same tests.
 
-Tolerance: rtol 1e-12 of max|U| after 200 steps. nvcc contracts a*b+c into
-FMAs, the plain version does not: the two differ by rounding only.
+Tolerance: rtol 1e-12 of max|U| after 200 steps. In the per-cell kernel
+nvcc contracts a*b+c into FMAs, the plain version does not: the two differ
+by rounding only. The per-slice kernel rounds op by op in the plain
+version's order, so the ODE fields without sin or cos are held bitwise as
+well, against the plain version run on the CPU: on the card, torch
+divides a tensor by a Python scalar as a product with the scalar's
+reciprocal (the per-slice step h = (t1 - t0) / steps among them), which
+rounds otherwise than the CPU's division and the kernel's.
 """
 
 import numpy as np
@@ -16,7 +23,7 @@ import torch
 
 import nngparareal_torch as nt
 from nngparareal_torch.ops import rk_cuda
-from nngparareal_torch.ops.rk import make_batched_last_integrator
+from nngparareal_torch.ops.rk import integrate_last, make_batched_last_integrator
 
 pytestmark = pytest.mark.gpu
 RTOL = 1e-12
@@ -126,3 +133,80 @@ def test_solver_auto_uses_kernel_on_card():
     s = nt.RKSolver(pde.get_vector_field(), 3, 50, G="RK2", F="RK8",
                     device_field=pde.get_device_field(), device=dev)
     assert s.fine == "cuda"
+
+
+ODES = {  # system: (Config's N, the tableaus its Table-2 path launches)
+    "FHNODE": (None, ("RK2", "RK4")),
+    "Rossler": (None, ("RK1", "RK4")),
+    "Hopf": (32, ("RK1", "RK8")),
+    "DblPend": (None, ("RK1", "RK8")),
+    "Brusselator": (None, ("RK4",)),
+    "Lorenz": (None, ("RK4",)),
+    "ThomasLabyrinth": (32, ("RK1", "RK4")),
+}
+POLYNOMIAL = ("FHNODE", "Rossler", "Hopf", "Brusselator", "Lorenz")
+
+
+def _ode_inputs(name, B, dev, seed=0):
+    """States around the system's u0, on slices of its configuration's
+    width."""
+    N, _ = ODES[name]
+    rng = np.random.default_rng(seed)
+    ode = getattr(nt, name)(normalization="-11", device=dev)
+    cfg = nt.Config(ode, N=N).get()
+    width = (cfg["tspan"][1] - cfg["tspan"][0]) / cfg["N"]
+    U = ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0, (B, ode.get_dim()))
+    t0 = rng.uniform(cfg["tspan"][0], cfg["tspan"][1] - width, B)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    return ode, cfg, as_t(t0), as_t(t0 + width), as_t(U).contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 37, "N", 512])
+@pytest.mark.parametrize("tab", ["RK1", "RK2", "RK4", "RK8"])
+@pytest.mark.parametrize("name", sorted(ODES))
+def test_ode_kernel_matches_plain(name, tab, B):
+    dev = _card()
+    if B == "N":
+        B = nt.Config(getattr(nt, name)(normalization="-11", device=dev),
+                      N=ODES[name][0]).get()["N"]
+    ode, _, t0, t1, U = _ode_inputs(name, B, dev)
+    fld, f = ode.get_device_field(), ode.get_vector_field()
+    before = rk_cuda.rk_fanout.launches_by_field[fld.name]
+    got = rk_cuda.rk_fanout(t0, t1, U, tab, 200, fld, f)
+    torch.cuda.synchronize()
+    assert rk_cuda.rk_fanout.launches_by_field[fld.name] == before + 1
+    plain = make_batched_last_integrator(f, tab, 200)
+    want = plain(t0, t1, U)
+    assert torch.isfinite(want).all()
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err <= RTOL, err
+    if name in POLYNOMIAL:
+        f_cpu = getattr(nt, name)(normalization="-11",
+                                  device="cpu").get_vector_field()
+        cpu = make_batched_last_integrator(f_cpu, tab, 200)(
+            t0.cpu(), t1.cpu(), U.cpu())
+        assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("name", sorted(ODES))
+def test_ode_coarse_solves_launch_the_kernel(name):
+    """On the card an ODE solver's coarse solves are the kernel at B=1,
+    with the coarse tableau, one launch per solve."""
+    dev = _card()
+    ode, cfg, _, _, U = _ode_inputs(name, 1, dev)
+    fld, f = ode.get_device_field(), ode.get_vector_field()
+    s = nt.RKSolver(f, cfg["Ng"], 50, G=cfg["G"], F=cfg["F"],
+                    device_field=fld, device=dev)
+    assert s.fine == "cuda" and s.coarse_kernel
+    dt_slice = (cfg["tspan"][1] - cfg["tspan"][0]) / cfg["N"]
+    before = rk_cuda.rk_fanout.launches_by_field[fld.name]
+    got = s.coarse_step_raw(3.0, dt_slice, U[0])
+    assert rk_cuda.rk_fanout.launches_by_field[fld.name] == before + 1
+    want = integrate_last(f, cfg["G"], 3.0, dt_slice / cfg["Ng"], cfg["Ng"],
+                          U[0])
+    assert (got - want).abs().max().item() <= RTOL * want.abs().max().item()
+    t = np.linspace(0.0, 4 * dt_slice, 5)
+    chain = s.run_G_chain(t, U[0])
+    assert rk_cuda.rk_fanout.launches_by_field[fld.name] == before + 5
+    assert chain.shape == (5, ode.get_dim())
+    assert torch.equal(chain[1], got)

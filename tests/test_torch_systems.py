@@ -18,7 +18,7 @@ from nngparareal_tpu.systems import configs as jconfigs
 
 import nngparareal_torch as nt
 from nngparareal_torch.ops import butcher as tbutcher
-from nngparareal_torch.ops.rk_cuda import BurgersField
+from nngparareal_torch.ops.rk_cuda import BurgersField, OdeField
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,9 +98,12 @@ def test_burgers_device_field_constants():
     assert isinstance(fld, BurgersField)
     assert fld.inv_h2 == oj._inv_h2
     assert fld.half_inv_2h == 0.5 * oj._inv_2h
-    # the kernel knows only the normalised form
+    # the kernel knows only Burgers' normalised form
     assert nt.Burgers(d_x=16, device="cpu").get_device_field() is None
-    assert nt.FHNODE(normalization="-11", device="cpu").get_device_field() is None
+    # the FHN ODE has the one-thread-per-slice kernel's field
+    # (tests/test_torch_odes.py holds its constants)
+    assert isinstance(nt.FHNODE(normalization="-11",
+                                device="cpu").get_device_field(), OdeField)
 
 
 @pytest.mark.parametrize("kind", ["fhn", "burgers"])
