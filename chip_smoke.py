@@ -17,18 +17,16 @@ Phases, each printed as it ends with its seconds:
              1 (the coarse solves' shape), with RK8 and the tableaus of
              their Table-2 path. The states are u0 plus a seeded
              perturbation, on slices of the configuration's width. Then
-             each kernel's time at its path's full step count, the plain
-             version's time at min(1000, steps) steps (as measured, never
-             scaled up), and the bound; Hopf also at B=512 with run_hopf's
-             3.4e6 RK8 steps per slice.
+             each kernel's time at its path's full step count (the ODE
+             fields' also at B=1: one slice's chain of steps alone), the
+             plain version's time at min(1000, steps) steps (as measured,
+             never scaled up), and the bound; Hopf also at B=512 with
+             run_hopf's 3.4e6 RK8 steps per slice.
 4. flagship  the port's first path: Burgers d=128 nnGParareal
              (bench.py:90-121: N=128 over [0, 5.9], RK1 x4 / RK8 x40000
              per slice, m=18, grid search, seed 45, eps=5e-7) through
              Parareal.run. It must converge with 10 <= K <= 14, and the
-             Burgers kernel must have run in it. The run's first
-             corrector sweep keeps a copy of its inputs; after the run it
-             is replayed once for its wall time and once under
-             torch.profiler for its launches and device time.
+             Burgers kernel must have run in it.
 5. fhn_pde   the second path: the FHN-PDE d-scaling run at dx=16 (d=512,
              N=512 over [0, 1100], RK4 x25 / RK8 x195 325 per slice,
              nnGP nn=20, grid search, seed 45, eps=5e-7) through
@@ -42,8 +40,7 @@ Phases, each printed as it ends with its seconds:
              oracle (FHN 11, Rossler 18, Hopf 19, Brusselator 19, Lorenz
              15, DblPend 15), and nnGP K lie in the range
              tests/test_parity_slow.py allows the JAX package (Rossler's
-             widened to 11-13 by the JAX package's own K under a 4e-16
-             move of u0). Then
+             widened to 11-13: see TABLE2). Then
              ThomasLabyrinth N=32 with the parareal model through
              Parareal.run (K=30, the JAX package's on the CPU).
 7. serial    the runs' converged iterates against fine solves, slice by
@@ -76,11 +73,6 @@ DEADLINE_S = LIMIT_S * 2 // 3
 FP64_PEAK = 34e12
 HBM_BYTES_PER_S = 3.35e12
 
-# an estimate of the per-slice kernel's serial chain: every f64 operation
-# of a thread's step waits for the one before it, 8 cycles each (Hopper's
-# dependent f64 latency, assumed) at the H100 SXM's 1.98 GHz boost clock
-CHAIN_S_PER_OP = 8 / 1.98e9
-
 FLAGSHIP = dict(d_x=128, N=128, T=5.9, Ng=4, Nf=40000, G="RK1", F="RK8",
                 eps=5e-7, nn=18, seed=45)
 FHN_PDE_DX = 16
@@ -95,9 +87,12 @@ SERIAL_ATOL = 2e-5
 TABLE2_EPS = 5e-7
 # system: (its field, Parareal K, nnGP K range, nnGP K of the exact CPU
 # grid-search run), from PARITY.md:9-16 and tests/test_parity_slow.py:19-30.
-# Rossler's range also takes 11: the JAX package's own nnGP run reaches
-# K=11 when u0 moves by 4e-16 (tests/test_torch_table2.py:
-# test_rossler_nngp_k_under_the_control)
+# Rossler's range also takes 11: the JAX package's nnGP gives 11 in three
+# of ten draws of a 4e-16 move of u0 (tests/test_torch_table2.py:
+# test_rossler_nngp_k_under_the_control), the reference implementation
+# gives 11 for one of five seeds at m=15 (PARITY.md:197), and the port on
+# the CPU gives 11, within the control's gap to JAX in every iteration
+# (tests/test_torch_table2_rossler_slow.py)
 TABLE2 = {
     "FHN_ODE": ("fhn_ode", 11, (5, 5), 5),
     "Rossler": ("rossler", 18, (11, 13), 13),
@@ -277,67 +272,78 @@ def _event_ms(fn, reps, warm=True):
     return start.elapsed_time(stop) / reps
 
 
-def check_kernel(state, ode, t0s, t1s, U, steps, ragged):
-    """Hold the kernel against its plain version at 200 steps (all slices
-    and the last ``ragged`` ones), time both, and record the kernel's
-    entry for the JSON line (its launches come from its path's run)."""
+def check_kernel(state, key, ode, t0s, t1s, U, tabs, steps, sizes):
+    """Hold a field's kernel against its plain version at 200 steps, for
+    each tableau of ``tabs`` (the path's fine tableau last) and each B of
+    ``sizes`` (the path's B first), on the last B rows of U; time the
+    kernel with the fine tableau at the path's full step count, at the
+    path's B and, where ``sizes`` lists the coarse solves' B=1, at B=1 (a
+    slice's chain of dependent steps alone); time the plain version at
+    min(1000, steps) steps; record the kernel's entry for the JSON line
+    (its launches come from its path's run). The plain version runs once
+    per tableau over all the rows: its rows are independent."""
     from nngparareal_torch.ops import rk_cuda
     from nngparareal_torch.ops.butcher import get_tableau
     from nngparareal_torch.ops.rk import make_batched_last_integrator
 
-    field = ode.get_device_field()
-    f = ode.get_vector_field()
-    tab = get_tableau("RK8")
-    B, d = U.shape
+    field, f = ode.get_device_field(), ode.get_vector_field()
+    rows, d = U.shape
+    checks = {}
+    worst = 0.0
+    for name in dict.fromkeys(tabs):
+        tab = get_tableau(name)
+        want = make_batched_last_integrator(f, tab, CHECK_STEPS)(t0s, t1s, U)
+        for B in sizes:
+            lo = rows - B
+            got = rk_cuda.rk_fanout(t0s[lo:].contiguous(),
+                                    t1s[lo:].contiguous(),
+                                    U[lo:].contiguous(), tab, CHECK_STEPS,
+                                    field, f)
+            abs_err = (got - want[lo:]).abs().max().item()
+            rel = abs_err / want[lo:].abs().max().item()
+            if not (rel <= KERNEL_RTOL):
+                raise PhaseError(f"{key} kernel vs plain, {name} at B={B}: "
+                                 f"max error {rel:.3e} of max|U| > "
+                                 f"{KERNEL_RTOL}")
+            checks[f"{name}/B={B}"] = abs_err
+            worst = max(worst, abs_err)
 
-    def compare(lo):
-        args = (t0s[lo:].contiguous(), t1s[lo:].contiguous(),
-                U[lo:].contiguous())
-        got = rk_cuda.rk_fanout(*args, tab, CHECK_STEPS, field, f)
-        # the plain version integrates the system's own torch field
-        want = make_batched_last_integrator(f, tab, CHECK_STEPS)(*args)
-        abs_err = (got - want).abs().max().item()
-        rel = abs_err / want.abs().max().item()
-        if not (rel <= KERNEL_RTOL):
-            raise PhaseError(f"{field.name} kernel vs plain at B={B - lo}: "
-                             f"max error {rel:.3e} of max|U| > {KERNEL_RTOL}")
-        return {"B": B - lo, "max_abs_err": abs_err, "max_rel_err": rel}
-
-    full = compare(0)
-    part = compare(max(B - ragged, 0))
-
-    ms = _event_ms(
-        lambda: rk_cuda.rk_fanout(t0s, t1s, U, tab, steps, field, f), reps=2)
-    # the plain version over PLAIN_STEPS steps, once: the comparison above
-    # has already run its ops
-    plain = make_batched_last_integrator(f, tab, PLAIN_STEPS)
-    plain_ms = _event_ms(lambda: plain(t0s, t1s, U), reps=1, warm=False)
-    entry = kernel_entry(field, full["max_abs_err"], ms, plain_ms,
-                         PLAIN_STEPS, B, d, steps, tab)
-    state["kernels"][field.name] = entry
-    return {"all": full, "ragged": part, "ms": ms, "steps": steps,
-            "plain_ms": plain_ms, "plain_steps": PLAIN_STEPS,
-            "bound_ms": entry["bound_ms"], "flops": entry["flops"]}
+    tab, B = get_tableau(tabs[-1]), sizes[0]
+    lo = rows - B
+    Ub, t0b, t1b = (x[lo:].contiguous() for x in (U, t0s, t1s))
+    ms = _event_ms(lambda: rk_cuda.rk_fanout(t0b, t1b, Ub, tab, steps,
+                                             field, f), reps=2)
+    plain_steps = min(PLAIN_STEPS, steps)
+    plain = make_batched_last_integrator(f, tab, plain_steps)
+    # once: the comparison above has already run its ops
+    plain_ms = _event_ms(lambda: plain(t0b, t1b, Ub), reps=1, warm=False)
+    entry = kernel_entry(field, worst, ms, plain_ms, plain_steps, B, d,
+                         steps, tab)
+    info = {"max_abs_err": checks, "ms": ms, "B": B, "steps": steps,
+            "tableau": tab.name, "plain_ms": plain_ms,
+            "plain_steps": plain_steps, "bound_ms": entry["bound_ms"],
+            "flops": entry["flops"]}
+    if 1 in sizes:
+        U1, t01, t11 = (x[-1:].contiguous() for x in (U, t0s, t1s))
+        entry["b1_ms"] = info["b1_ms"] = _event_ms(
+            lambda: rk_cuda.rk_fanout(t01, t11, U1, tab, steps, field, f),
+            reps=2)
+    state["kernels"][key] = entry
+    return info
 
 
 def check_ode_kernel(state, kind):
-    """Hold an ODE field's kernel against its plain version at 200 steps,
-    with RK8 and the tableaus of its Table-2 path, at B = N, a ragged 37
-    and 1; time both at the path's fine shape; record the kernel's entry.
-    The plain version runs once per tableau over all the rows: its rows
-    are independent, so each B is held against its own rows of it."""
+    """An ODE field's kernel: u0 plus a seeded perturbation, on slices of
+    its configuration's width, with RK8 and the tableaus of its Table-2
+    path, at B = N, a ragged 37 and 1 (the coarse solves' shape)."""
     import numpy as np
     import torch
     import nngparareal_torch as nt
-    from nngparareal_torch.ops import rk_cuda
-    from nngparareal_torch.ops.butcher import get_tableau
-    from nngparareal_torch.ops.rk import make_batched_last_integrator
 
     dev = state["device"]
     cls, N_arg = ODE_SYSTEMS[kind]
     ode = getattr(nt, cls)(normalization="-11", device=dev)
     cfg = nt.Config(ode, N=N_arg).get()
-    field, f = ode.get_device_field(), ode.get_vector_field()
     N, d = cfg["N"], ode.get_dim()
     rows = max(N, RAGGED)
     width = (cfg["tspan"][1] - cfg["tspan"][0]) / N
@@ -345,49 +351,16 @@ def check_ode_kernel(state, kind):
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
     U = as_t(ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0, (rows, d)))
     t0 = as_t(rng.uniform(cfg["tspan"][0], cfg["tspan"][1] - width, rows))
-    t1 = t0 + width
-    checks = {}
-    worst = 0.0
-    for name in dict.fromkeys(("RK8", cfg["G"], cfg["F"])):
-        tab = get_tableau(name)
-        want = make_batched_last_integrator(f, tab, CHECK_STEPS)(t0, t1, U)
-        scale = want.abs().max().item()
-        for B, lo, hi in ((N, 0, N), (RAGGED, rows - RAGGED, rows),
-                          (1, rows - 1, rows)):
-            got = rk_cuda.rk_fanout(t0[lo:hi], t1[lo:hi],
-                                    U[lo:hi].contiguous(), tab,
-                                    CHECK_STEPS, field, f)
-            abs_err = (got - want[lo:hi]).abs().max().item()
-            rel = abs_err / scale
-            if not (rel <= KERNEL_RTOL):
-                raise PhaseError(f"{kind} kernel vs plain, {name} at B={B}: "
-                                 f"max error {rel:.3e} of max|U| > "
-                                 f"{KERNEL_RTOL}")
-            checks[f"{name}/B={B}"] = abs_err
-            worst = max(worst, abs_err)
-    # the Table-2 fine fan-out: B = N slices, the full fine step count
-    tab, steps = get_tableau(cfg["F"]), cfg["Nf"]
-    Ub, t0b, t1b = U[:N].contiguous(), t0[:N], t1[:N]
-    ms = _event_ms(lambda: rk_cuda.rk_fanout(t0b, t1b, Ub, tab, steps,
-                                             field, f), reps=2)
-    plain_steps = min(PLAIN_STEPS, steps)
-    plain = make_batched_last_integrator(f, tab, plain_steps)
-    plain_ms = _event_ms(lambda: plain(t0b, t1b, Ub), reps=1, warm=False)
-    entry = kernel_entry(field, worst, ms, plain_ms, plain_steps, N, d,
-                         steps, tab)
-    entry["serial_chain_ms"] = (steps * flops_per_thread_step(tab, field)
-                                * CHAIN_S_PER_OP * 1e3)
-    state["kernels"][kind] = entry
-    info = {"max_abs_err": checks, "ms": ms, "B": N, "steps": steps,
-            "tableau": tab.name, "plain_ms": plain_ms,
-            "plain_steps": plain_steps, "bound_ms": entry["bound_ms"],
-            "serial_chain_ms": entry["serial_chain_ms"]}
+    info = check_kernel(state, kind, ode, t0, t0 + width, U,
+                        ("RK8", cfg["G"], cfg["F"]), cfg["Nf"],
+                        (N, RAGGED, 1))
     if kind == "hopf":
-        entry["b512"] = info["b512"] = time_hopf512(state, ode, field, f)
+        state["kernels"][kind]["b512"] = info["b512"] = time_hopf512(
+            state, ode)
     return info
 
 
-def time_hopf512(state, ode, field, f):
+def time_hopf512(state, ode):
     """Hopf at run_hopf's size, the next ODE path: B=512 slices of
     Config(N=512)'s width, its fine step count x 10 000, RK8; one launch
     (seconds long), after the ones above."""
@@ -398,6 +371,7 @@ def time_hopf512(state, ode, field, f):
     from nngparareal_torch.ops.butcher import get_tableau
 
     dev = state["device"]
+    field, f = ode.get_device_field(), ode.get_vector_field()
     cfg = nt.Config(nt.Hopf(normalization="-11", device=dev), N=512).get()
     tab, steps, B = get_tableau(cfg["F"]), cfg["Nf"] * HOPF_FINE_MULT, 512
     t = np.linspace(cfg["tspan"][0], cfg["tspan"][1], B + 1)
@@ -409,9 +383,7 @@ def time_hopf512(state, ode, field, f):
     ms = _event_ms(lambda: rk_cuda.rk_fanout(t0, t1, U, tab, steps, field,
                                              f), reps=1, warm=False)
     return {"B": B, "steps": steps, "tableau": tab.name, "ms": ms,
-            **bound(tab, field, B, ode.get_dim(), steps),
-            "serial_chain_ms": (steps * flops_per_thread_step(tab, field)
-                                * CHAIN_S_PER_OP * 1e3)}
+            **bound(tab, field, B, ode.get_dim(), steps)}
 
 
 def phase_kernels(state):
@@ -431,9 +403,9 @@ def phase_kernels(state):
     t = torch.linspace(0.0, cfg["T"], cfg["N"] + 1, dtype=torch.float64,
                        device=dev)
     U = solver.run_G_chain(t, ode.get_init_cond())[:-1].contiguous()
-    info["burgers"] = check_kernel(state, ode, t[:-1].contiguous(),
-                                   t[1:].contiguous(), U, cfg["Nf"],
-                                   RAGGED)
+    info["burgers"] = check_kernel(state, "burgers", ode, t[:-1], t[1:], U,
+                                   (cfg["F"],), cfg["Nf"],
+                                   (cfg["N"], RAGGED))
 
     # FHN-PDE: u0 plus a seeded perturbation, 512 slices of the
     # configuration's width (its coarse chain would take 512 coarse steps)
@@ -444,81 +416,15 @@ def phase_kernels(state):
     Up = p.ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0, (p.N, p.n))
     tt = np.linspace(p.tspan[0], p.tspan[1], p.N + 1)
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
-    info["fhn_pde"] = check_kernel(state, p.ode, as_t(tt[:-1]),
-                                   as_t(tt[1:]), as_t(Up).contiguous(),
-                                   p.solver.Nf, RAGGED)
+    info["fhn_pde"] = check_kernel(state, "fhn_pde", p.ode, as_t(tt[:-1]),
+                                   as_t(tt[1:]), as_t(Up),
+                                   (p.solver.F.name,), p.solver.Nf,
+                                   (p.N, RAGGED))
 
     # the ODE fields of the one-thread-per-slice kernel
     for kind in ODE_SYSTEMS:
         info[kind] = check_ode_kernel(state, kind)
     return info
-
-
-def keep_first_sweep(p):
-    """Make the run's first corrector sweep keep a copy of its inputs and
-    outputs (a few device copies, no host sync) for a replay after the
-    run; returns the unwrapped sweep and the dict that receives them."""
-    from nngparareal_torch.models import Dataset
-
-    sweep = p._sweep
-    kept = {}
-
-    def first_kept(model, ds, I, *rest):
-        out = sweep(model, ds, I, *rest)
-        if not kept:
-            *tensors, clip = rest
-            kept["args"] = (model, Dataset(ds.X.clone(), ds.D.clone(),
-                                           ds.valid.clone()), I,
-                            *[x.clone() for x in tensors], clip)
-            kept["out"] = [x.clone() for x in out]
-        return out
-
-    p._sweep = first_kept
-    return sweep, kept
-
-
-def profile_sweep(sweep, kept, N):
-    """Replay one kept sweep: once for its wall time, once under
-    torch.profiler for its kernel launches and the card's busy time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    args = kept["args"]
-    intervals = N - args[2]
-    with torch.inference_mode():
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        out = sweep(*args)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - tic
-        replay_diff = max(float((a - b).abs().max())
-                          for a, b in zip(out, kept["out"]))
-        # the card's activity only: nothing here reads the host's ops
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            sweep(*args)
-            torch.cuda.synchronize()
-    kernels = copies = 0
-    busy_ns = 0
-    # the raw events: the profiler's per-op event tree, slow to build for
-    # a few hundred thousand launches, is not needed for sums and counts
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            busy_ns += e.duration_ns()
-            if e.name().startswith(("Memcpy", "Memset")):
-                copies += 1
-            else:
-                kernels += 1
-    busy_s = busy_ns * 1e-9
-    return {"intervals": intervals, "wall_s": wall_s,
-            "replay_max_abs_diff": replay_diff,
-            "kernels": kernels, "copies": copies,
-            "kernels_per_interval": kernels / intervals,
-            "device_busy_s": busy_s,
-            "device_busy_ms_per_interval": 1e3 * busy_s / intervals,
-            "wall_ms_per_interval": 1e3 * wall_s / intervals,
-            "device_idle_share": (1.0 - busy_s / wall_s if busy_s > 0
-                                  else "not measured")}
 
 
 def phase_flagship(state):
@@ -533,7 +439,6 @@ def phase_flagship(state):
                          device_field=ode.get_device_field(), device=dev)
     p = nt.Parareal(ode, solver, [0.0, cfg["T"]], cfg["N"],
                     epsilon=cfg["eps"], verbose=None, device=dev)
-    sweep, kept = keep_first_sweep(p)
     zero_counts()
     out = p.run(model="nngp", nn=cfg["nn"], seed=cfg["seed"],
                 optimizer="grid")
@@ -556,7 +461,6 @@ def phase_flagship(state):
         raise PhaseError(f"flagship: converged={out['converged']} K="
                          f"{out['k']}, expected convergence with K in "
                          f"{list(K_RANGE)}")
-    info["first_sweep_profile"] = profile_sweep(sweep, kept, cfg["N"])
     return info
 
 

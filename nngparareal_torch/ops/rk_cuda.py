@@ -108,60 +108,6 @@ ODE_DIMS = {"fhn_ode": 2, "rossler": 3, "hopf": 3, "dblpend": 4,
             "brusselator": 2, "lorenz": 3, "tomlab": 3}
 
 
-# plain torch transcriptions of the kernel's raw ODE functors:
-# (u, consts) -> the field's components (``OdeField.evaluate``)
-
-
-def _fhn_ode(u, c):
-    u0, u1 = u.unbind(-1)
-    return [3.0 * (u0 - (u0 * u0 * u0) / 3.0 + u1),
-            -(1.0 / 3.0) * (u0 - 0.2 + 0.2 * u1)]
-
-
-def _rossler(u, c):
-    u0, u1, u2 = u.unbind(-1)
-    return [-u1 - u2, u0 + 0.2 * u1, 0.2 + u2 * (u0 - 5.7)]
-
-
-def _hopf(u, c):
-    u0, u1, u2 = u.unbind(-1)
-    mu = u2 / c[0] - u0 * u0 - u1 * u1
-    return [-u1 + u0 * mu, u0 + u1 * mu, torch.ones_like(mu)]
-
-
-def _dblpend(u, c):
-    u0, u1, u2, u3 = u.unbind(-1)
-    cd, sd = torch.cos(u0 - u2), torch.sin(u0 - u2)
-    sin0, sin2 = torch.sin(u0), torch.sin(u2)
-    sq1, sq3 = u1 * u1, u3 * u3
-    den = -1.0 / (2.0 - cd * cd)
-    return [u1, den * (sq1 * cd * sd + sq3 * sd + 2.0 * sin0 - cd * sin2),
-            u3, den * (-2.0 * sq1 * sd - sq3 * sd * cd - 2.0 * cd * sin0
-                       + 2.0 * sin2)]
-
-
-def _brusselator(u, c):
-    u0, u1 = u.unbind(-1)
-    sq0_u1 = u0 * u0 * u1
-    return [1.0 + sq0_u1 - 4.0 * u0, 3.0 * u0 - sq0_u1]
-
-
-def _lorenz(u, c):
-    u0, u1, u2 = u.unbind(-1)
-    return [10.0 * (u1 - u0), 28.0 * u0 - u1 - u0 * u2,
-            u0 * u1 - (8.0 / 3.0) * u2]
-
-
-def _tomlab(u, c):
-    x = u.unbind(-1)
-    return [-0.5 * x[i] + 10.0 * torch.sin(x[(i + 1) % 3]) for i in range(3)]
-
-
-_PLAIN_RAW = {"fhn_ode": _fhn_ode, "rossler": _rossler, "hopf": _hopf,
-              "dblpend": _dblpend, "brusselator": _brusselator,
-              "lorenz": _lorenz, "tomlab": _tomlab}
-
-
 @dataclass(frozen=True)
 class OdeField:
     """A d < 64 ODE field as the one-thread-per-slice kernel takes it: the
@@ -200,17 +146,6 @@ class OdeField:
             return (None, *self.consts)
         vals = (*self.mn, *self.span, *self.scale)
         return ((ctypes.c_double * len(vals))(*vals), *self.consts)
-
-    def evaluate(self, u):
-        """The field at states u (..., d), computed in plain torch from this
-        field's constants alone, as the kernel's functor computes it."""
-        raw = lambda x: torch.stack(_PLAIN_RAW[self.name](x, self.consts),
-                                    dim=-1)
-        if self.mn is None:
-            return raw(u)
-        mn, span, scale = (torch.tensor(x, dtype=u.dtype, device=u.device)
-                           for x in (self.mn, self.span, self.scale))
-        return raw((u + 1.0) / 2.0 * span + mn) * scale
 
 
 FIELDS = (BurgersField, FhnPdeField, OdeField)

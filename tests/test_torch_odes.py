@@ -14,8 +14,9 @@ JAX package (on the CPU, f64) and nngparareal_torch (``device="cpu"``):
   {32..512}), the ``_{N}`` suffix of the name, and the errors for a
   missing or invalid N;
 * ``make_system`` on the aliases, the ``_n`` suffix and embedded N;
-* each system's device field (the kernel's constants) run through the
-  plain torch transcription of its CUDA functor (``OdeField.evaluate``)
+* each system's device field (the kernel's constants: Hopf's maxtime and
+  the [-1,1] map, held against the JAX normaliser's arrays) run through a
+  plain torch transcription of its CUDA functor (``_functor_field``)
   equals ``get_vector_field()`` bitwise; on CPU tensors the kernel's
   wrapper takes the plain integrator, and the coarse solves stay the torch
   integrator;
@@ -172,6 +173,76 @@ def test_make_system_refusals():
         tregistry.make_system("diffreact", d_x=4, device="cpu")
 
 
+# plain torch transcriptions of the kernel's raw ODE functors
+# (csrc/rk_fanout.cu), (u, consts) -> the field's components. The functors
+# write their own constants (0.2, 5.7, 28, 8/3, ...) into the CUDA source,
+# so these copies pin only what the device field carries: the kind, Hopf's
+# maxtime and the [-1,1] map. test_torch_gpu.py::test_ode_kernel_matches_plain
+# holds the functors themselves against the systems' fields on the card.
+
+
+def _fhn_ode(u, c):
+    u0, u1 = u.unbind(-1)
+    return [3.0 * (u0 - (u0 * u0 * u0) / 3.0 + u1),
+            -(1.0 / 3.0) * (u0 - 0.2 + 0.2 * u1)]
+
+
+def _rossler(u, c):
+    u0, u1, u2 = u.unbind(-1)
+    return [-u1 - u2, u0 + 0.2 * u1, 0.2 + u2 * (u0 - 5.7)]
+
+
+def _hopf(u, c):
+    u0, u1, u2 = u.unbind(-1)
+    mu = u2 / c[0] - u0 * u0 - u1 * u1
+    return [-u1 + u0 * mu, u0 + u1 * mu, torch.ones_like(mu)]
+
+
+def _dblpend(u, c):
+    u0, u1, u2, u3 = u.unbind(-1)
+    cd, sd = torch.cos(u0 - u2), torch.sin(u0 - u2)
+    sin0, sin2 = torch.sin(u0), torch.sin(u2)
+    sq1, sq3 = u1 * u1, u3 * u3
+    den = -1.0 / (2.0 - cd * cd)
+    return [u1, den * (sq1 * cd * sd + sq3 * sd + 2.0 * sin0 - cd * sin2),
+            u3, den * (-2.0 * sq1 * sd - sq3 * sd * cd - 2.0 * cd * sin0
+                       + 2.0 * sin2)]
+
+
+def _brusselator(u, c):
+    u0, u1 = u.unbind(-1)
+    sq0_u1 = u0 * u0 * u1
+    return [1.0 + sq0_u1 - 4.0 * u0, 3.0 * u0 - sq0_u1]
+
+
+def _lorenz(u, c):
+    u0, u1, u2 = u.unbind(-1)
+    return [10.0 * (u1 - u0), 28.0 * u0 - u1 - u0 * u2,
+            u0 * u1 - (8.0 / 3.0) * u2]
+
+
+def _tomlab(u, c):
+    x = u.unbind(-1)
+    return [-0.5 * x[i] + 10.0 * torch.sin(x[(i + 1) % 3]) for i in range(3)]
+
+
+FUNCTORS = {"fhn_ode": _fhn_ode, "rossler": _rossler, "hopf": _hopf,
+            "dblpend": _dblpend, "brusselator": _brusselator,
+            "lorenz": _lorenz, "tomlab": _tomlab}
+
+
+def _functor_field(fld, u):
+    """The field at states u (..., d) from the device field ``fld`` alone,
+    as the kernel's functor computes it: raw((u + 1)/2 * span + mn) * scale,
+    or raw(u) for the identity map."""
+    raw = lambda x: torch.stack(FUNCTORS[fld.name](x, fld.consts), dim=-1)
+    if fld.mn is None:
+        return raw(u)
+    mn, span, scale = (torch.tensor(x, dtype=u.dtype, device=u.device)
+                       for x in (fld.mn, fld.span, fld.scale))
+    return raw((u + 1.0) / 2.0 * span + mn) * scale
+
+
 @pytest.mark.parametrize("norm", NORMS)
 @pytest.mark.parametrize("name", SYSTEMS)
 def test_device_field_reproduces_the_field(name, norm):
@@ -197,7 +268,8 @@ def test_device_field_reproduces_the_field(name, norm):
         assert list(fld.constants()[0]) == [*fld.mn, *fld.span, *fld.scale]
     U = torch.as_tensor(_states(ot, seed=2))
     want = ot.get_vector_field()(0.0, U)
-    torch.testing.assert_close(fld.evaluate(U), want, rtol=0, atol=0)
+    torch.testing.assert_close(_functor_field(fld, U), want, rtol=0,
+                               atol=0)
 
 
 def test_ode_field_refuses_an_unknown_kind():

@@ -18,7 +18,9 @@ eps=5e-7:
   and its conv_int departs from the unmoved run's at the sixth entry
   (``test_lorenz_nngp_control_is_near_a_tie``).
 * So: Parareal's conv_int is equal; the nnGP's conv_int agrees with JAX's
-  for at least as many entries as the control's does; the final iterate
+  for exactly as many leading entries as it does today (Lorenz 6 of 9: the
+  seventh is 39 against JAX's 37), and for no fewer than the control's
+  do; the final iterate
   is within 1e-9 of max|u| of JAX's, or else within 10x the control's
   gap; Parareal's iterates stay within 10x the control's gap in every
   iteration.
@@ -26,10 +28,11 @@ eps=5e-7:
   in the port to the same K and conv_int as the JAX run.
 * ThomasLabyrinth N=32 with bare Parareal reaches K=30 in the JAX
   package: chip_smoke.py's oracle for the port's run of it.
-* Rossler's nnGP K under the control is 11, outside the 12-13 that
-  tests/test_parity_slow.py allows the JAX package (its CPU value is 13):
-  the method's spread at the rounding level, which the chip run's range
-  takes in.
+* Rossler's nnGP K under the control, for the sign draws 0-9, is 12, 12,
+  11, 11, 12, 12, 12, 12, 11, 12: 11 lies outside the 12-13 that
+  tests/test_parity_slow.py allows the JAX package (its CPU value is 13),
+  in the method's spread at the rounding level, which the chip run's
+  range takes in.
 * The refusals: an nnGP that names no search (the JAX default, Nelder-
   Mead, is not ported), ``gpjax``, ``pool=`` and ``mesh=``.
 
@@ -98,9 +101,10 @@ def jax_run(name, model, edit=None, nudge=0.0, sign_seed=0, **kw):
                  **mkw, **kw)
 
 
-def port_run(name, edit=None, results_dir=None):
-    """The port's run_table2 for one system, both models; returns its row
-    and the Parareal outputs of its two runs (with their histories)."""
+def port_run(name, edit=None, results_dir=None, models=MODELS):
+    """The port's run_table2 for one system (both models unless
+    ``models`` says otherwise); returns its row and the Parareal outputs
+    of its runs (with their histories), by model."""
     outs = []
     run = tdriver.Parareal.run
 
@@ -120,11 +124,11 @@ def port_run(name, edit=None, results_dir=None):
         if edit:
             mp.setattr(texp, "Config", Cut)
         rows = texp.run_table2(
-            EPS, models=MODELS, results_dir=results_dir,
+            EPS, models=models, results_dir=results_dir,
             systems=[ODE_NAMES.get(name, name)], device="cpu",
             nngp_kw=GRID)
-    assert len(rows) == 1 and len(outs) == 2
-    return rows[0], dict(zip(MODELS, outs))
+    assert len(rows) == 1 and len(outs) == len(models)
+    return rows[0], dict(zip(models, outs))
 
 
 def runs_of(name, edit=None, controls=True):
@@ -157,9 +161,10 @@ def check_row(row, name, N):
     assert [r["name"] for r in row["runs"]] == list(MODELS)
 
 
-def check_against_jax(runs, model, k_oracle=None):
+def check_against_jax(runs, model, k_oracle=None, agree=None):
     """K equal (and equal to the oracle), conv_int and iterates against
-    JAX within what the control allows."""
+    JAX within what the control allows; an nnGP run's conv_int agrees with
+    JAX's for exactly ``agree`` leading entries."""
     row, outs = runs["port"]
     ot, oj = outs[model], runs[model]
     summary = row["runs"][MODELS.index(model)]
@@ -187,8 +192,9 @@ def check_against_jax(runs, model, k_oracle=None):
         assert np.all(port <= np.maximum(10 * control, FINAL * scale)), (
             port, control)
     else:
-        agree = _agree(ot["conv_int"], oj["conv_int"])
-        assert agree >= _agree(oc["conv_int"], oj["conv_int"]), (
+        got = _agree(ot["conv_int"], oj["conv_int"])
+        assert got == agree, (ot["conv_int"], oj["conv_int"])
+        assert got >= _agree(oc["conv_int"], oj["conv_int"]), (
             ot["conv_int"], oj["conv_int"], oc["conv_int"])
 
 
@@ -210,9 +216,10 @@ def lorenz(tmp_path_factory):
     return runs
 
 
-@pytest.mark.parametrize("model,k", [("parareal", 15), ("nngp", 9)])
-def test_lorenz_table2_matches_jax(lorenz, model, k):
-    check_against_jax(lorenz, model, k)
+@pytest.mark.parametrize("model,k,agree", [("parareal", 15, None),
+                                           ("nngp", 9, 6)])
+def test_lorenz_table2_matches_jax(lorenz, model, k, agree):
+    check_against_jax(lorenz, model, k, agree)
 
 
 def test_lorenz_table2_row(lorenz):
@@ -261,13 +268,17 @@ def test_tomlab_parareal_k_of_the_jax_package():
     assert out["converged"] and out["k"] == 30
 
 
-def test_rossler_nngp_k_under_the_control():
-    """Rossler's nnGP (grid) K is 13 on the CPU (PARITY.md), and 11 when u0
-    moves by 4e-16: the range 12-13 that tests/test_parity_slow.py allows
-    is narrower than the method's own spread at the rounding level. The
-    chip run's Rossler range (chip_smoke.py:TABLE2) takes 11 for this."""
-    out = jax_run("Rossler", "nngp", nudge=NUDGE, sign_seed=2)
-    assert out["converged"] and out["k"] == 11
+@pytest.mark.parametrize("sign_seed,k", enumerate(
+    [12, 12, 11, 11, 12, 12, 12, 12, 11, 12]))
+def test_rossler_nngp_k_under_the_control(sign_seed, k):
+    """Rossler's nnGP (grid) K is 13 on the CPU (PARITY.md); when u0 moves
+    by 4e-16 it is 12 or 11 by the draw of the move's signs (ten draws:
+    seven 12, three 11, no 13). So the range 12-13 that
+    tests/test_parity_slow.py allows is narrower than the method's own
+    spread at the rounding level, and the chip run's Rossler range
+    (chip_smoke.py:TABLE2) takes 11."""
+    out = jax_run("Rossler", "nngp", nudge=NUDGE, sign_seed=sign_seed)
+    assert out["converged"] and out["k"] == k
 
 
 # --- refusals ---

