@@ -6,9 +6,16 @@
 Phases, each printed as it ends with its seconds:
 
 1. env       torch and CUDA versions, the card, its power limit.
-2. build     nvcc builds the fan-out kernel from csrc/rk_fanout.cu, and
-             prints the compiler's register and spill report.
-3. kernels   the kernel against its plain torch version, for each field
+2. build     nvcc builds the fan-out kernels from csrc/rk_fanout.cu (with
+             the tableaus of csrc/tableaus.cuh compiled in) and prints
+             ptxas' registers and spills of every instance (any spill
+             fails), each path instance's registers and resident blocks
+             per SM as the card reports them, and the latency probe: the
+             card's cycles per dependent f64 add, multiply, FMA, division
+             and sin, and per exchange round (store, barrier, load) of a
+             128- and a 256-thread block, with the clock they imply
+             beside nvidia-smi's clocks.sm.
+3. kernels   the kernels against their plain torch version, for each field
              at its path's shapes (max error relative to max|U| must be
              <= 1e-12, 200 steps): Burgers d=128 at B=128 and a ragged
              B=37, and FHN-PDE dx=16 (d=512) at B=512 and B=37, RK8; the
@@ -17,11 +24,12 @@ Phases, each printed as it ends with its seconds:
              1 (the coarse solves' shape), with RK8 and the tableaus of
              their Table-2 path. The states are u0 plus a seeded
              perturbation, on slices of the configuration's width. Then
-             each kernel's time at its path's full step count (the ODE
-             fields' also at B=1: one slice's chain of steps alone), the
-             plain version's time at min(1000, steps) steps (as measured,
-             never scaled up), and the bound; Hopf also at B=512 with
-             run_hopf's 3.4e6 RK8 steps per slice.
+             each kernel's time at its path's full fine shape, the ODE
+             fields' also at B=1 with the coarse tableau and step count
+             (``coarse_ms``), the plain version's time at min(1000, steps)
+             steps (as measured, never scaled up), and the bound: the
+             largest of the operation, byte and chain bounds (``bound``);
+             Hopf also at B=512 with run_hopf's 3.4e6 RK8 steps per slice.
 4. flagship  the port's first path: Burgers d=128 nnGParareal
              (bench.py:90-121: N=128 over [0, 5.9], RK1 x4 / RK8 x40000
              per slice, m=18, grid search, seed 45, eps=5e-7) through
@@ -49,8 +57,12 @@ Phases, each printed as it ends with its seconds:
              and each Table-2 run with one kernel fan-out from the
              converged starts.
 
-Then one JSON line describing each kernel, the card's name and power limit
-as nvidia-smi prints them, and as the last line
+Then one JSON line describing each kernel (its launches on its path's
+run, split by shape into fine fan-outs and coarse solves,
+``launches_by_shape``; ``chain_ms``, the chain bound: the path's steps
+times the dependent operations through one step, ``chain_depth``, at the
+probe's latencies), the card's name and power limit as nvidia-smi prints
+them, and as the last line
 {"ok": true, "device": {...}}. A deadline at two thirds of the 1200 s the
 run is given stops it with an error that names the running phase. Any
 failure exits nonzero and prints no result; so does a machine with no
@@ -116,11 +128,55 @@ HOPF_FINE_MULT = 10000  # run_hopf's fine steps: Config(N=512)'s Nf x 10000
 # grid point of Burgers, one cell of FHN-PDE with both species, one slice
 # of an ODE), counted from csrc/rk_fanout.cu. An f64 sin or cos counts as
 # 20 (a range reduction and a polynomial of degree ~13 in CUDA's math
-# library, estimated). The ODE fields' [-1,1] map adds 5 per coordinate.
-FIELD_OPS = {"burgers": 9, "fhn_pde": 29, "fhn_ode": 10, "rossler": 7,
-             "hopf": 10, "dblpend": 26 + 4 * 20, "brusselator": 7,
+# library, estimated), DblPend's __ddiv_rn as 1; FHN's division by 3 is 3
+# (a multiply and two FMAs), Hopf's by maxtime 5 (csrc/rk_fanout.cu:div_by).
+# The ODE fields' [-1,1] map adds 5 per coordinate.
+FIELD_OPS = {"burgers": 9, "fhn_pde": 29, "fhn_ode": 12, "rossler": 7,
+             "hopf": 14, "dblpend": 26 + 4 * 20, "brusselator": 7,
              "lorenz": 9, "tomlab": 3 * (3 + 20)}
 MAP_OPS = 5
+# Dependent f64 operations through one field evaluation, in the order the
+# kernel computes it, counted by hand from csrc/rk_fanout.cu. An ODE field
+# has a matrix: row i, column j is the longest path from state coordinate
+# i to component j of the field (None: no path). An entry "5" is five
+# adds, multiplies or FMAs; each "d" adds a __ddiv_rn and each "t" a sin or
+# cos; "a|b" holds two paths whose order depends on the latencies. A PDE
+# field has one row: the path from its neighbours' loads (after the
+# stage's store and barrier) to each of its values.
+#   fhn_ode  f0 = c*(u0 - u0*u0*u0/3 + u1): u0: mul mul, the division by
+#            3 (mul fma fma), sub add mul; f1 = -(1/c)*(u0 - a + b*u1): u0:
+#            sub add mul, u1: mul add mul
+#   rossler  f2 = b + u2*(u0 - c): u0: sub mul add; f1 = u0 + a*u1
+#   hopf     mu = u2/maxtime - u0*u0 - u1*u1, f0 = -u1 + u0*mu: u0: mul sub
+#            sub mul add; the time coordinate u2 reaches mu through the
+#            division (mul and four FMAs), and f2 = 1 reads nothing
+#   dblpend  f1 = den*(sq1*cd*sd + ...), den = -1/(2 - cd*cd): u0 or u2:
+#            sub, sin/cos, then 6 (through sd) or mul sub div mul (den);
+#            u1: mul mul mul add add sub mul; f0 = u1 and f2 = u3 copy
+#   brusselator  f0 = 1 + u0*u0*u1 - 4*u0: u0: mul mul add sub
+#   lorenz   f1 = 28*u0 - u1 - u0*u2: u0: mul sub sub
+#   tomlab   f0 = -a*u0 + b*sin(u1): u1: sin mul add
+#   burgers  fma(-2, v, vp), + vm, * inv_h2, fma(-(v + 1), v_x, v_xx)
+#   fhn_pde  the Laplacian (sub add mul fma), then fma(a, l1, u1), - u1^3,
+#            - u2, + k; V: fma(b, l2, u1), - u2, * inv_tau
+FIELD_DEPTH = {
+    "fhn_ode": [["8", "3"], ["2", "3"]],
+    "rossler": [[None, "1", "3"], ["1", "2", None], ["1", None, "2"]],
+    "hopf": [["5", "5", None], ["4", "4", None], ["9", "9", None]],
+    "dblpend": [[None, "7t|4dt", None, "7t|4dt"], ["0", "7", None, "7"],
+                [None, "7t|4dt", None, "7t|4dt"], [None, "6", "0", "7"]],
+    "brusselator": [["4", "3"], ["3", "2"]],
+    "lorenz": [["2", "3", "2"], ["2", "2", "2"], [None, "2", "2"]],
+    "tomlab": [["2", None, "2t"], ["2t", "2", None], [None, "2t", "2"]],
+    "burgers": [["4"]],
+    "fhn_pde": [["8", "7"]],
+}
+# the [-1,1] map on each path of an ODE field: (v + 1), * 0.5, * span, + mn
+# before the raw field, * scale after
+MAP_DEPTH = 5
+PER_CELL = ("burgers", "fhn_pde")
+# unit latencies: chain_depth counts operations, a division or a sin as one
+UNIT = {"op": 1, "div": 1, "trig": 1, "sync": 0}
 
 
 class PhaseError(RuntimeError):
@@ -146,9 +202,13 @@ class Phases:
 
 
 def nvidia_smi_line():
+    return nvidia_smi_query("name,power.limit")
+
+
+def nvidia_smi_query(fields):
     try:
         proc = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
+            ["nvidia-smi", f"--query-gpu={fields}",
              "--format=csv,noheader"],
             capture_output=True, text=True, timeout=30)
     except (OSError, subprocess.TimeoutExpired) as exc:
@@ -166,7 +226,7 @@ def phase_env():
             "nvidia_smi": nvidia_smi_line()}
 
 
-def phase_build():
+def phase_build(state):
     from nngparareal_torch.ops import rk_cuda
 
     lib = rk_cuda.library_path()
@@ -174,17 +234,42 @@ def phase_build():
     tic = time.perf_counter()
     rk_cuda.build()
     build_s = time.perf_counter() - tic
-    # the compiler's resource report (registers, spills) for the record
-    obj = lib.with_suffix(".ptxas.o")
-    proc = subprocess.run(
-        [rk_cuda.find_nvcc(), *[f for f in rk_cuda.NVCC_FLAGS
-                                if f not in ("-shared",)],
-         "-Xptxas", "-v", "-c", "-o", str(obj), str(rk_cuda.SOURCE)],
-        capture_output=True, text=True, timeout=300)
-    obj.unlink(missing_ok=True)
+    state["latency"] = latency = probe_latency()
     return {"library": os.path.relpath(lib, HERE), "fresh": fresh,
             "build_s": round(build_s, 3),
-            "ptxas": ptxas_report(proc.stderr)}
+            "ptxas": ptxas_report(rk_cuda.ptxas_report_path().read_text()),
+            "occupancy": occupancy(), "latency": latency}
+
+
+# the exchange rounds probed: the per-cell kernel's block sizes on its paths
+# (Burgers d=128, FHN-PDE dx=16)
+SYNC_THREADS = (128, 256)
+PROBE_N = 1 << 20
+
+
+def probe_latency():
+    """The card's cycles per dependent operation (clock64() in one
+    thread), for the chain bound: add, multiply, FMA, division, sin (less
+    the add that closes its chain), and the per-cell kernel's exchange
+    round (store, barrier, a neighbour's load) in a block of each of
+    SYNC_THREADS. The clock is the add chain's cycles over its time by
+    CUDA events; nvidia-smi's clocks.sm is printed beside it."""
+    from nngparareal_torch.ops import rk_cuda
+
+    cycles, ms = {}, {}
+    for kind in ("add", "mul", "fma", "div", "sin"):
+        rk_cuda.latency_probe(kind, n=1 << 12)  # warm
+        cycles[kind], ms[kind] = rk_cuda.latency_probe(kind, n=PROBE_N)
+    for threads in SYNC_THREADS:
+        cycles[f"sync{threads}"], ms[f"sync{threads}"] = (
+            rk_cuda.latency_probe("sync", n=PROBE_N // 16, threads=threads))
+    clock_hz = cycles["add"] * PROBE_N / (ms["add"] * 1e-3)
+    ns = {k: v / clock_hz * 1e9 for k, v in cycles.items()}
+    for key, val in {**cycles, "clock_hz": clock_hz}.items():
+        if not (val > 0 and val < float("inf")):
+            raise PhaseError(f"latency probe: {key} = {val}")
+    return {"cycles": cycles, "ns": ns, "clock_hz": clock_hz,
+            "clocks_sm": nvidia_smi_query("clocks.sm,clocks.max.sm")}
 
 
 # the kernels' functors in their mangled names, and their fields
@@ -196,23 +281,62 @@ PTXAS_FUNCTORS = (("FhnPdeField", "fhn_pde"), ("BurgersField", "burgers"),
 
 
 def ptxas_report(text):
-    """Registers and spills of each kernel instance, keyed by field and
-    stage count, from ``-Xptxas -v`` output."""
+    """Registers and spills of each kernel instance, keyed by field,
+    tableau and (ODE fields) "map" or "raw", from ``-Xptxas -v`` output;
+    the probe's instances under "probe"."""
     report = {}
     key = None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            stages = re.search(r"ILi(\d+)E", m.group(1))
-            field = next((name for functor, name in PTXAS_FUNCTORS
-                          if functor in m.group(1)), "?")
-            key = f"{field}/{stages.group(1) if stages else '?'} stages"
+            name = m.group(1)
+            tab = re.search(r"tableau\d+(RK\d+)", name)
+            field = next((f for functor, f in PTXAS_FUNCTORS
+                          if functor in name), "probe")
+            mapped = re.search(r"SliceField.*?Lb([01])E", name)
+            key = "/".join([field, tab.group(1) if tab else name[-12:]]
+                           + ([("raw", "map")[int(mapped.group(1))]]
+                              if mapped else []))
             report[key] = {}
         elif key and "spill" in ln:
             report[key]["spills"] = ln.split(":", 1)[-1].strip()
         elif key and "registers" in ln:
             report[key]["registers"] = ln.split(":", 1)[-1].strip()
-    return report or text.strip().splitlines()[-5:]
+    spilling = [k for k, v in report.items()
+                if not re.search(r"0 bytes spill stores, 0 bytes spill loads",
+                                 v.get("spills", ""))]
+    if not report or spilling:
+        raise PhaseError(f"ptxas: spills in {spilling} (or no report): "
+                         f"{text.strip().splitlines()[-5:]}")
+    return report
+
+
+def occupancy():
+    """Registers, local memory and resident blocks per SM of each kernel
+    instance on the paths, at its path's block size, as the card reports
+    them (rk_cuda.kernel_attributes). The local memory of the fields with
+    sin or cos is the 40-byte stack of CUDA's argument reduction;
+    ptxas_report holds every instance to no spills."""
+    import nngparareal_torch as nt
+    from nngparareal_torch.ops import rk_cuda
+
+    out = {}
+    ode = nt.Burgers(d_x=FLAGSHIP["d_x"], normalization="-11", device="cpu")
+    out["burgers/RK8"] = rk_cuda.kernel_attributes(
+        ode.get_device_field(), "RK8", FLAGSHIP["N"], FLAGSHIP["d_x"])
+    ode = nt.FHNPDE(d_x=FHN_PDE_DX, normalization="-11", device="cpu")
+    out["fhn_pde/RK8"] = rk_cuda.kernel_attributes(
+        ode.get_device_field(), "RK8", 512, ode.get_dim())
+    for kind, (cls, N_arg) in ODE_SYSTEMS.items():
+        ode = getattr(nt, cls)(normalization="-11", device="cpu")
+        cfg = nt.Config(ode, N=N_arg).get()
+        for tab, B in ((cfg["F"], cfg["N"]), (cfg["G"], 1)):
+            out[f"{kind}/{tab}/B={B}"] = rk_cuda.kernel_attributes(
+                ode.get_device_field(), tab, B, ode.get_dim())
+    out["hopf/RK8/B=512"] = rk_cuda.kernel_attributes(
+        nt.Hopf(normalization="-11", device="cpu").get_device_field(), "RK8",
+        512, 3)
+    return out
 
 
 def flops_per_thread_step(tab, field):
@@ -229,22 +353,120 @@ def flops_per_thread_step(tab, field):
     return ops * tab.stages + field.values * (2 * nz_a + 2 * nz_b + 2)
 
 
-def bound(tab, field, B, d, steps):
-    """The least time of a fan-out: operations over the f64 peak, or bytes
-    (each input read once, the output written once) over the memory
-    rate, whichever is larger."""
+def _path_cycles(entry, lat, extra):
+    """The latency of one FIELD_DEPTH entry (None: no path)."""
+    if entry is None:
+        return None
+    best = 0.0
+    for path in entry.split("|"):
+        ops = int("".join(ch for ch in path if ch.isdigit()) or 0) + extra
+        best = max(best, ops * lat["op"] + path.count("d") * lat["div"]
+                   + path.count("t") * lat["trig"])
+    return best
+
+
+def chain_cycles(tab, field, lat, steps=64):
+    """The longest chain of dependent operations through one RK step, in
+    steady state, at the latencies ``lat`` (cycles of one add or multiply,
+    "op"; of a __ddiv_rn, "div"; of a sin or cos, "trig"; of the per-cell
+    kernel's store, barrier and load, "sync").
+
+    Each value's ready time is followed through ``steps`` steps in the
+    kernel's order, the look-ahead order of ops/rk.py:rk_step: stage s's
+    input is the running sum u + (h a_s0) k_0 + ..., whose last term waits
+    for k_(s-1); k_s waits for its input through the field's FIELD_DEPTH
+    paths (a per-cell field also for the stage's exchange, after every
+    value of the stage was stored); the weight sum starts at its first
+    nonzero b_i k_i; then u + h * acc. The ODE kernel rounds each add and
+    multiply (a term is two operations); the per-cell kernel contracts
+    them (one FMA). Returns the growth of the latest ready time per step
+    over the last half of the steps."""
+    per_cell = field.name in PER_CELL
+    depth = FIELD_DEPTH[field.name]
+    extra = MAP_DEPTH if getattr(field, "mn", None) is not None else 0
+    L = [[_path_cycles(e, lat, extra) for e in row] for row in depth]
+    op = lat["op"]
+    term = op if per_cell else 2 * op  # (h a_ij) k_j into a running sum
+    S, D = tab.stages, len(L[0])
+    u = [0.0] * D
+    marks = []
+    for _ in range(steps):
+        acc = [list(u) for _ in range(S)]
+        bsum = None
+        for s in range(S):
+            v = acc[s]
+            if per_cell:
+                ready = max(v) + lat["sync"]
+                k = [ready + L[0][c] for c in range(D)]
+            else:
+                k = [max([v[i] + L[i][c] for i in range(D)
+                          if L[i][c] is not None], default=0.0)
+                     for c in range(D)]
+            for i in range(s + 1, S):
+                if tab.a[i][s] != 0.0:
+                    acc[i] = [max(acc[i][c], k[c] + term - op) + op
+                              for c in range(D)]
+            if tab.b[s] != 0.0:
+                bsum = ([kc + op for kc in k] if bsum is None else
+                        [max(bsum[c], k[c] + term - op) + op
+                         for c in range(D)])
+        u = [max(bsum[c] + term - op, u[c]) + op for c in range(D)]
+        marks.append(max(u))
+    half = steps // 2
+    return (marks[-1] - marks[half - 1]) / (steps - half)
+
+
+def chain_depth(tab, field):
+    """Dependent operations on the longest path through one RK step (a
+    division or a sin counted as one; the per-cell exchange not at all)."""
+    return chain_cycles(tab, field, UNIT)
+
+
+def bound(tab, field, B, d, steps, latency):
+    """The least time of a fan-out, the largest of three:
+
+    * operations: f64 operations (``flops_per_thread_step``; an FMA counts
+      as two) over the 34 TFLOP/s f64 peak, which counts an FMA as two
+      operations. The per-slice kernel rounds each add and multiply
+      (``Ieee``: no contraction), and an unfused operation issues at half
+      that rate, so its operations go over 17 T/s;
+    * bytes: each input read once, the output written once, over the
+      memory rate;
+    * chain: the steps times the dependent chain through one step
+      (``chain_cycles``) at the card's measured latencies (``latency``,
+      from the probe), over its measured clock: no slice can go faster,
+      however many threads the card has.
+    """
     threads = B * (d // field.values)
     flops = threads * steps * flops_per_thread_step(tab, field)
-    nbytes = 8 * (2 * B + 2 * B * d + tab.stages * (tab.stages + 1))
-    flop_ms = flops / FP64_PEAK * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(flop_ms, byte_ms),
-            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-            "flops": flops}
+    peak = FP64_PEAK if field.name in PER_CELL else FP64_PEAK / 2
+    nbytes = 8 * (2 * B + 2 * B * d)
+    times = {"operations": flops / peak * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "chain": (steps * chain_cycles(tab, field, chain_latency(
+                 latency, field, d)) / latency["clock_hz"] * 1e3)}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": by, "flops": flops,
+            "operations_ms": times["operations"], "bytes_ms": times["bytes"],
+            "chain_ms": times["chain"]}
 
 
-def kernel_entry(field, max_abs_err, ms, plain_ms, plain_steps, B, d,
-                 steps, tab):
+def chain_latency(latency, field, d):
+    """The probe's cycles as chain_cycles takes them for a kernel: its
+    fastest arithmetic operation (the ODE kernel's add or multiply, the
+    per-cell kernel's add, multiply or FMA), and for the per-cell kernel
+    the exchange round of its block."""
+    cyc = latency["cycles"]
+    if field.name in PER_CELL:
+        return {"op": min(cyc["add"], cyc["mul"], cyc["fma"]),
+                "div": cyc["div"], "trig": cyc["sin"] - cyc["add"],
+                "sync": cyc[f"sync{d // field.values}"]}
+    return {"op": min(cyc["add"], cyc["mul"]), "div": cyc["div"],
+            "trig": cyc["sin"] - cyc["add"], "sync": 0.0}
+
+
+def kernel_entry(state, field, max_abs_err, ms, plain_ms, plain_steps, B,
+                 d, steps, tab):
     """A kernel's entry of the JSON line; its launches come from its
     path's run."""
     return {"name": f"rk_fanout[{field.name}]", "route": "cuda",
@@ -252,8 +474,9 @@ def kernel_entry(field, max_abs_err, ms, plain_ms, plain_steps, B, d,
             "replaces": "nngparareal_tpu/ops/rk_pallas.py:194",
             "launches": None, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "plain_steps": plain_steps,
-            **bound(tab, field, B, d, steps), "library_ms": None,
-            "shape": [B, d], "steps": steps, "tableau": tab.name}
+            **bound(tab, field, B, d, steps, state["latency"]),
+            "library_ms": None, "shape": [B, d], "steps": steps,
+            "tableau": tab.name}
 
 
 def _event_ms(fn, reps, warm=True):
@@ -272,16 +495,17 @@ def _event_ms(fn, reps, warm=True):
     return start.elapsed_time(stop) / reps
 
 
-def check_kernel(state, key, ode, t0s, t1s, U, tabs, steps, sizes):
+def check_kernel(state, key, ode, t0s, t1s, U, tabs, steps, sizes,
+                 coarse=None):
     """Hold a field's kernel against its plain version at 200 steps, for
     each tableau of ``tabs`` (the path's fine tableau last) and each B of
     ``sizes`` (the path's B first), on the last B rows of U; time the
-    kernel with the fine tableau at the path's full step count, at the
-    path's B and, where ``sizes`` lists the coarse solves' B=1, at B=1 (a
-    slice's chain of dependent steps alone); time the plain version at
-    min(1000, steps) steps; record the kernel's entry for the JSON line
-    (its launches come from its path's run). The plain version runs once
-    per tableau over all the rows: its rows are independent."""
+    kernel with the fine tableau at the path's full step count and B, and,
+    where ``coarse`` = (tableau, steps) is given, at B=1 with the coarse
+    solves' tableau and step count; time the plain version at min(1000,
+    steps) steps; record the kernel's entry for the JSON line (its launches
+    come from its path's run). The plain version runs once per tableau
+    over all the rows: its rows are independent."""
     from nngparareal_torch.ops import rk_cuda
     from nngparareal_torch.ops.butcher import get_tableau
     from nngparareal_torch.ops.rk import make_batched_last_integrator
@@ -317,17 +541,24 @@ def check_kernel(state, key, ode, t0s, t1s, U, tabs, steps, sizes):
     plain = make_batched_last_integrator(f, tab, plain_steps)
     # once: the comparison above has already run its ops
     plain_ms = _event_ms(lambda: plain(t0b, t1b, Ub), reps=1, warm=False)
-    entry = kernel_entry(field, worst, ms, plain_ms, plain_steps, B, d,
-                         steps, tab)
+    entry = kernel_entry(state, field, worst, ms, plain_ms, plain_steps, B,
+                         d, steps, tab)
     info = {"max_abs_err": checks, "ms": ms, "B": B, "steps": steps,
             "tableau": tab.name, "plain_ms": plain_ms,
-            "plain_steps": plain_steps, "bound_ms": entry["bound_ms"],
-            "flops": entry["flops"]}
-    if 1 in sizes:
+            "plain_steps": plain_steps,
+            **{k: entry[k] for k in ("bound_ms", "bound_by", "chain_ms",
+                                     "operations_ms", "flops")}}
+    if coarse is not None:
+        ctab, csteps = get_tableau(coarse[0]), coarse[1]
         U1, t01, t11 = (x[-1:].contiguous() for x in (U, t0s, t1s))
-        entry["b1_ms"] = info["b1_ms"] = _event_ms(
-            lambda: rk_cuda.rk_fanout(t01, t11, U1, tab, steps, field, f),
-            reps=2)
+        cms = _event_ms(lambda: rk_cuda.rk_fanout(t01, t11, U1, ctab, csteps,
+                                                  field, f), reps=10)
+        cb = bound(ctab, field, 1, d, csteps, state["latency"])
+        entry["coarse"] = info["coarse"] = {
+            "tableau": ctab.name, "steps": csteps, "ms": cms,
+            "bound_ms": cb["bound_ms"], "bound_by": cb["bound_by"],
+            "chain_ms": cb["chain_ms"]}
+        entry["coarse_ms"] = cms
     state["kernels"][key] = entry
     return info
 
@@ -353,7 +584,7 @@ def check_ode_kernel(state, kind):
     t0 = as_t(rng.uniform(cfg["tspan"][0], cfg["tspan"][1] - width, rows))
     info = check_kernel(state, kind, ode, t0, t0 + width, U,
                         ("RK8", cfg["G"], cfg["F"]), cfg["Nf"],
-                        (N, RAGGED, 1))
+                        (N, RAGGED, 1), coarse=(cfg["G"], cfg["Ng"]))
     if kind == "hopf":
         state["kernels"][kind]["b512"] = info["b512"] = time_hopf512(
             state, ode)
@@ -383,7 +614,7 @@ def time_hopf512(state, ode):
     ms = _event_ms(lambda: rk_cuda.rk_fanout(t0, t1, U, tab, steps, field,
                                              f), reps=1, warm=False)
     return {"B": B, "steps": steps, "tableau": tab.name, "ms": ms,
-            **bound(tab, field, B, ode.get_dim(), steps)}
+            **bound(tab, field, B, ode.get_dim(), steps, state["latency"])}
 
 
 def phase_kernels(state):
@@ -471,6 +702,21 @@ def zero_counts():
     rk_cuda.rk_fanout.launches = 0
     for name in rk_cuda.rk_fanout.launches_by_field:
         rk_cuda.rk_fanout.launches_by_field[name] = 0
+    rk_cuda.rk_fanout.launches_by_shape.clear()
+
+
+def record_launches(state, field):
+    """A path's launches of its field's kernel into the kernel's entry:
+    the total, and by (tableau, steps): its fine fan-outs and its coarse
+    solves."""
+    from nngparareal_torch.ops import rk_cuda
+
+    entry = state["kernels"][field]
+    entry["launches"] = rk_cuda.rk_fanout.launches_by_field[field]
+    entry["launches_by_shape"] = {
+        f"{tab} x {steps}": n for (name, tab, steps), n
+        in rk_cuda.rk_fanout.launches_by_shape.items() if name == field}
+    return entry["launches"]
 
 
 def read_counts(state, field):
@@ -485,8 +731,7 @@ def read_counts(state, field):
     others = {k: v for k, v in counts.items() if k != field and v}
     if others or rk_cuda.rk_fanout.launches != counts[field]:
         raise PhaseError(f"the {field} path launched other kernels: {counts}")
-    state["kernels"][field]["launches"] = counts[field]
-    return counts[field]
+    return record_launches(state, field)
 
 
 def sweep_stats(out, N):
@@ -595,6 +840,7 @@ def phase_table2(state):
         row = per_system(*args, **kwargs)
         torch.cuda.synchronize()
         counts[row["system"]] = dict(rk_cuda.rk_fanout.launches_by_field)
+        record_launches(state, TABLE2[row["system"]][0])
         return row
 
     kept = []
@@ -619,8 +865,9 @@ def phase_table2(state):
         if launches[field] < 1 or others:
             raise PhaseError(f"{system}: its path must launch the {field} "
                              f"kernel and no other: {launches}")
-        state["kernels"][field]["launches"] = launches[field]
-        sys_info = {"launches": launches[field]}
+        sys_info = {"launches": launches[field],
+                    "launches_by_shape":
+                        state["kernels"][field]["launches_by_shape"]}
         for (p, out), model in zip(runs, ("parareal", "nngp")):
             check_iterates(f"{system} {model}", p, out)
             sys_info[model] = run_info(out, p.N)
@@ -760,7 +1007,7 @@ def main():
     t_start = time.perf_counter()
     try:
         env = phases.run("env", phase_env)
-        phases.run("build", phase_build)
+        phases.run("build", phase_build, state)
         phases.run("kernels", phase_kernels, state)
         phases.run("flagship", phase_flagship, state)
         phases.run("fhn_pde", phase_fhn_pde, state)

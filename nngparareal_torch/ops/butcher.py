@@ -2,9 +2,12 @@
 
 Port of ``nngparareal_tpu/ops/butcher.py``: RK1 (Euler), RK2 (midpoint),
 RK4 (classic) and RK8 (Cooper-Verner, 11 stages). The coefficients are
-Python-float tuples; the torch integrators unroll the stage loop over them
-and the CUDA fan-out kernel receives them as one small f64 array
-(``flat_coefficients``).
+Python-float tuples; the torch integrators unroll the stage loop over them.
+The CUDA fan-out kernel compiles them in: ``cuda_header`` writes
+``csrc/tableaus.cuh`` from these values, each as a C99 hexadecimal literal
+(bitwise the Python double). Regenerate it after any change here with
+
+    python -m nngparareal_torch.ops.butcher > nngparareal_torch/csrc/tableaus.cuh
 """
 
 import math
@@ -138,13 +141,48 @@ def get_tableau(method) -> Tableau:
     return TABLEAUS[key]
 
 
-def flat_coefficients(method):
-    """Dense a (stages x stages, row-major) followed by b, as floats.
-
-    The layout the CUDA fan-out kernel reads (csrc/rk_fanout.cu).
-    """
-    tab = get_tableau(method)
+def dense_a(tab):
+    """The stage matrix as an S x S tuple of floats."""
     s = tab.stages
-    a = [float(tab.a[i][j]) if j < len(tab.a[i]) else 0.0
-         for i in range(s) for j in range(s)]
-    return a + [float(x) for x in tab.b]
+    return tuple(tuple(float(row[j]) if j < len(row) else 0.0
+                       for j in range(s)) for row in tab.a)
+
+
+def cuda_header():
+    """The text of csrc/tableaus.cuh: one struct per tableau of TABLEAUS,
+    named as the tableau, with its index ``id`` (the C entry points'
+    tableau argument), ``S``, ``a[S][S]`` and ``b[S]`` as hexadecimal
+    literals, and the nonzero pattern ``nz_a``, ``nz_b``."""
+    def row(vals, fmt):
+        return "{" + ", ".join(fmt(v) for v in vals) + "}"
+
+    hexf = lambda v: float(v).hex()
+    flag = lambda v: "1" if v != 0.0 else "0"
+    out = ["// The Butcher tableaus the fan-out kernels are compiled for.",
+           "// Generated from nngparareal_torch/ops/butcher.py by",
+           "//     python -m nngparareal_torch.ops.butcher "
+           "> nngparareal_torch/csrc/tableaus.cuh",
+           "// Each coefficient is float.hex() of butcher.py's value: "
+           "bitwise the",
+           "// Python double. Do not edit by hand.",
+           "#pragma once", "", "namespace tableau {", ""]
+    for idx, (name, tab) in enumerate(TABLEAUS.items()):
+        a = dense_a(tab)
+        out += [f"struct {name} {{",
+                f"    static constexpr int id = {idx};",
+                f"    static constexpr int S = {tab.stages};",
+                "    static constexpr double a[S][S] = {"]
+        out += [f"        {row(r, hexf)}," for r in a]
+        out += ["    };",
+                f"    static constexpr double b[S] = {row(tab.b, hexf)};",
+                "    static constexpr int nz_a[S][S] = {"]
+        out += [f"        {row(r, flag)}," for r in a]
+        out += ["    };",
+                f"    static constexpr int nz_b[S] = {row(tab.b, flag)};",
+                "};", ""]
+    out += ["}  // namespace tableau", ""]
+    return "\n".join(out)
+
+
+if __name__ == "__main__":
+    print(cuda_header(), end="")

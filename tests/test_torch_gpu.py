@@ -1,7 +1,9 @@
 """The CUDA fine fan-out kernel against its plain torch version, on the
 card, for every field it has: Burgers and FHN-PDE (one thread per cell),
-and the seven ODE fields (one thread per slice). Run on a machine with
-one: ``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
+and the seven ODE fields (one thread per slice); the latency probe, the
+refusal of a tableau the kernels are not compiled for, and each instance's
+registers. Run on a machine with one:
+``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
 Without a card every test here skips.
 
 Whether a card exists is decided inside each test (never at import or in a
@@ -210,3 +212,65 @@ def test_ode_coarse_solves_launch_the_kernel(name):
     assert rk_cuda.rk_fanout.launches_by_field[fld.name] == before + 5
     assert chain.shape == (5, ode.get_dim())
     assert torch.equal(chain[1], got)
+
+
+@pytest.mark.parametrize("kind,threads", [
+    ("add", 1), ("mul", 1), ("fma", 1), ("div", 1), ("sin", 1),
+    ("sync", 128), ("sync", 256),
+])
+def test_latency_probe_gives_finite_positive_cycles(kind, threads):
+    dev = _card()
+    before = rk_cuda.rk_fanout.launches
+    cycles, ms = rk_cuda.latency_probe(kind, n=1 << 14, threads=threads,
+                                       device=dev)
+    assert np.isfinite(cycles) and cycles > 0
+    assert np.isfinite(ms) and ms > 0
+    assert rk_cuda.rk_fanout.launches == before  # not a fan-out launch
+
+
+def test_kernel_refuses_a_tableau_it_is_not_compiled_for():
+    """A tableau named as a compiled one but with other coefficients, or
+    with a name the kernel has no instance for, raises on the card before
+    any launch."""
+    from nngparareal_torch.ops.butcher import Tableau, get_tableau
+
+    dev = _card()
+    rk4 = get_tableau("RK4")
+    other = Tableau("RK4", rk4.a, (0.25, 0.25, 0.25, 0.25), rk4.c, 4)
+    unknown = Tableau("RK3", rk4.a, rk4.b, rk4.c, 4)
+    ode, t0, t1, U = _inputs(4, 128, dev)
+    fhn = nt.FHNODE(normalization="-11", device=dev)
+    _, _, t0o, t1o, Uo = _ode_inputs("FHNODE", 4, dev)
+    before = rk_cuda.rk_fanout.launches
+    for tab in (other, unknown):
+        with pytest.raises(ValueError, match="tableau"):
+            rk_cuda.rk_fanout(t0, t1, U, tab, 5, ode.get_device_field(),
+                              ode.get_vector_field())
+        with pytest.raises(ValueError, match="tableau"):
+            rk_cuda.rk_fanout(t0o, t1o, Uo, tab, 5, fhn.get_device_field(),
+                              fhn.get_vector_field())
+    assert rk_cuda.rk_fanout.launches == before
+
+
+@pytest.mark.parametrize("name", ["Burgers", "FHNPDE", *sorted(ODES)])
+def test_kernel_instances_do_not_spill(name):
+    """Every instance a system can launch (RK1-RK8, its path's block size)
+    has its registers and no local memory, and fits on an SM. The fields
+    with sin or cos keep the 40-byte stack frame of CUDA's argument
+    reduction for large arguments ("40 bytes cumulative stack size" in
+    ptxas' report), whatever the tableau: that is not a spill."""
+    dev = _card()
+    if name in ("Burgers", "FHNPDE"):
+        ode = getattr(nt, name)(d_x=128 if name == "Burgers" else 16,
+                                normalization="-11", device=dev)
+        B = 128 if name == "Burgers" else 512
+    else:
+        ode = getattr(nt, name)(normalization="-11", device=dev)
+        B = 512
+    for tab in ("RK1", "RK2", "RK4", "RK8"):
+        attrs = rk_cuda.kernel_attributes(ode.get_device_field(), tab, B,
+                                          ode.get_dim(), device=dev)
+        assert 0 < attrs["registers"] <= 255, attrs
+        assert attrs["local_bytes"] == (
+            40 if name in ("DblPend", "ThomasLabyrinth") else 0), attrs
+        assert attrs["blocks_per_sm"] >= 1, attrs

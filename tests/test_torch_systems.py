@@ -18,6 +18,7 @@ from nngparareal_tpu.systems import configs as jconfigs
 
 import nngparareal_torch as nt
 from nngparareal_torch.ops import butcher as tbutcher
+from nngparareal_torch.ops import rk_cuda
 from nngparareal_torch.ops.rk_cuda import BurgersField, OdeField
 
 
@@ -42,13 +43,18 @@ def test_tableaus_equal(name):
 
 
 def test_rk8_shape_and_flat_layout():
+    """RK8's shape, and the dense layout the kernels are compiled with
+    (csrc/tableaus.cuh: a as S x S rows, then b)."""
     tab = tbutcher.get_tableau("RK8")
     assert tab.stages == 11
     assert sum(1 for row in tab.a for x in row if x != 0.0) == 39
     assert sum(1 for x in tab.b if x != 0.0) == 5
-    flat = tbutcher.flat_coefficients("RK8")
-    assert len(flat) == 11 * 11 + 11
-    assert flat[3 * 11 + 2] == tab.a[3][2] and flat[121 + 7] == tab.b[7]
+    a = tbutcher.dense_a(tab)
+    assert len(a) == 11 and all(len(row) == 11 for row in a)
+    assert a[3][2] == tab.a[3][2] and a[0][5] == 0.0
+    header = rk_cuda.TABLEAUS_H.read_text()
+    assert "struct RK8 {\n    static constexpr int id = 3;" in header
+    assert rk_cuda.compiled_tableau_id(tab) == 3
 
 
 def _pair(kind, **kw):
