@@ -33,8 +33,8 @@ Phases, each printed as it ends with its seconds:
 4. flagship  the port's first path: Burgers d=128 nnGParareal
              (bench.py:90-121: N=128 over [0, 5.9], RK1 x4 / RK8 x40000
              per slice, m=18, grid search, seed 45, eps=5e-7) through
-             Parareal.run. It must converge with 10 <= K <= 14, and the
-             Burgers kernel must have run in it.
+             experiments.run_burgers. It must converge with 10 <= K <= 14,
+             and the Burgers kernel must have run in it.
 5. fhn_pde   the second path: the FHN-PDE d-scaling run at dx=16 (d=512,
              N=512 over [0, 1100], RK4 x25 / RK8 x195 325 per slice,
              nnGP nn=20, grid search, seed 45, eps=5e-7) through
@@ -50,23 +50,38 @@ Phases, each printed as it ends with its seconds:
              tests/test_parity_slow.py allows the JAX package (Rossler's
              widened to 11-13: see TABLE2). Then
              ThomasLabyrinth N=32 with the parareal model through
-             Parareal.run (K=30, the JAX package's on the CPU).
-7. serial    the runs' converged iterates against fine solves, slice by
+             experiments.run_tomlab (K=30, the JAX package's on the CPU).
+7. table2_nm the fourth path: experiments.run_table2 at eps=5e-7 with the
+             nngp model and no nngp_kw: the JAX package's default search,
+             batched Nelder-Mead (random integer starts, fatol = xatol =
+             0.1, at most 200 iterations), run as CUDA graphs replayed
+             until every simplex has frozen. Each system's K must lie in
+             TABLE2_NM (the seed bands at its m of PARITY.md:190-199,
+             widened to the CPU oracle of PARITY.md:9-16), and its path
+             must have launched its own field's kernel and no other. Per
+             system: the runtime and its split, the sweep's ms per
+             interval, the Nelder-Mead iterations per search until every
+             simplex froze (mean, max), the graph replays, the launches by
+             shape. Then one prediction's search, replayed from the graphs
+             and run with eager launches: bitwise equal.
+8. serial    the runs' converged iterates against fine solves, slice by
              slice (atol 2e-5, as tests/test_parareal.py holds the JAX
              package): Burgers one slice after another from u0; FHN-PDE
-             and each Table-2 run with one kernel fan-out from the
-             converged starts.
+             and each Table-2 run (both searches) with one kernel fan-out
+             from the converged starts.
 
 Then one JSON line describing each kernel (its launches on its path's
 run, split by shape into fine fan-outs and coarse solves,
-``launches_by_shape``; ``chain_ms``, the chain bound: the path's steps
-times the dependent operations through one step, ``chain_depth``, at the
-probe's latencies), the card's name and power limit as nvidia-smi prints
-them, and as the last line
-{"ok": true, "device": {...}}. A deadline at two thirds of the 1200 s the
-run is given stops it with an error that names the running phase. Any
-failure exits nonzero and prints no result; so does a machine with no
-card, or a directory without the package.
+``launches_by_shape``, and by path, ``launches_by_path``; ``chain_ms``,
+the chain bound: the path's steps times the dependent operations through
+one step, ``chain_depth``, at the probe's latencies), the card's name and
+power limit as nvidia-smi prints them, and as the last line
+{"ok": true, "device": {...}}. The drivers print each iteration; those
+lines go to chiprun_out/chip_smoke.log (git-ignored) with every line
+above, so the standard output holds the phases' lines only. A deadline
+at two thirds of the 1200 s the run is given stops it with an error that
+names the running phase. Any failure exits nonzero and prints no result;
+so does a machine with no card, or a directory without the package.
 """
 
 import json
@@ -78,6 +93,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+LOG_DIR = "chiprun_out"  # git-ignored, as the output of GPU runs
 LIMIT_S = 1200
 DEADLINE_S = LIMIT_S * 2 // 3
 
@@ -119,6 +135,12 @@ ODE_SYSTEMS = {"fhn_ode": ("FHNODE", None), "rossler": ("Rossler", None),
                "hopf": ("Hopf", 32), "dblpend": ("DblPend", None),
                "brusselator": ("Brusselator", None),
                "lorenz": ("Lorenz", None), "tomlab": ("ThomasLabyrinth", 32)}
+# system: the nnGP K range with the JAX package's default search,
+# Nelder-Mead: the seed band of PARITY.md:190-199 ("ours") at the system's
+# m, widened to hold the CPU IEEE-f64 oracle of PARITY.md:9-16 (5, 13, 10,
+# 17, 9, 10)
+TABLE2_NM = {"FHN_ODE": (5, 5), "Rossler": (12, 13), "Hopf_32": (9, 10),
+             "Brusselator": (17, 18), "Lorenz": (9, 11), "DblPend": (9, 10)}
 # ThomasLabyrinth N=32, Parareal: the JAX package's K on the CPU
 # (tests/test_torch_table2.py:test_tomlab_parareal_k_of_the_jax_package)
 TOMLAB_K = 30
@@ -184,20 +206,31 @@ class PhaseError(RuntimeError):
 
 
 class Phases:
-    """Names the running phase, for the deadline and for failures."""
+    """Names the running phase, for the deadline and for failures. What a
+    phase prints itself (the drivers' per-iteration lines) goes to the
+    log file ``log`` alone; the phase's line, and every line ``emit``
+    prints, go to the standard output and the log."""
 
-    def __init__(self):
+    def __init__(self, log):
         self.current = "start"
+        self.log = log
+
+    def emit(self, line):
+        print(line, flush=True)
+        self.log.write(line + "\n")
+        self.log.flush()
 
     def run(self, name, fn, *args):
+        import contextlib
         import torch
 
         self.current = name
         tic = time.perf_counter()
-        info = fn(*args)
+        with contextlib.redirect_stdout(self.log):
+            info = fn(*args)
         torch.cuda.synchronize()
         secs = time.perf_counter() - tic
-        print(f"[{name}] {json.dumps(info)} {secs:.3f}s", flush=True)
+        self.emit(f"[{name}] {json.dumps(info)} {secs:.3f}s")
         return info
 
 
@@ -660,21 +693,29 @@ def phase_kernels(state):
 
 def phase_flagship(state):
     import torch
-    import nngparareal_torch as nt
+    from nngparareal_torch import experiments
+    from nngparareal_torch.driver import Parareal
 
     cfg = FLAGSHIP
     dev = state["device"]
-    ode = nt.Burgers(d_x=cfg["d_x"], normalization="-11", device=dev)
-    solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
-                         G=cfg["G"], F=cfg["F"],
-                         device_field=ode.get_device_field(), device=dev)
-    p = nt.Parareal(ode, solver, [0.0, cfg["T"]], cfg["N"],
-                    epsilon=cfg["eps"], verbose=None, device=dev)
-    zero_counts()
-    out = p.run(model="nngp", nn=cfg["nn"], seed=cfg["seed"],
-                optimizer="grid")
-    torch.cuda.synchronize()
-    launches = read_counts(state, "burgers")
+    kept = []
+    run = keep_runs(kept)
+    try:
+        zero_counts()
+        experiments.run_burgers(T=cfg["T"], N=cfg["N"], models=("nngp",),
+                                results_dir=None, nn=cfg["nn"],
+                                seed=cfg["seed"],
+                                nngp_kw=dict(optimizer="grid"), device=dev)
+        torch.cuda.synchronize()
+        launches = read_counts(state, "burgers", "flagship")
+    finally:
+        Parareal.run = run
+    (p, out), = kept
+    built = (p.ode.get_dim(), p.N, p.tspan, p.solver.Ng, p.solver.Nf,
+             p.solver.G.name, p.solver.F.name, p.epsilon)
+    if built != (cfg["d_x"], cfg["N"], (0.0, cfg["T"]), cfg["Ng"], cfg["Nf"],
+                 cfg["G"], cfg["F"], cfg["eps"]):
+        raise PhaseError(f"run_burgers built {built}, not bench.py's run")
     state["flagship"] = (p, out)
     tm = out["timings"]
     intervals, per_interval = sweep_stats(out, cfg["N"])
@@ -705,21 +746,28 @@ def zero_counts():
     rk_cuda.rk_fanout.launches_by_shape.clear()
 
 
-def record_launches(state, field):
+def record_launches(state, field, path):
     """A path's launches of its field's kernel into the kernel's entry:
-    the total, and by (tableau, steps): its fine fan-outs and its coarse
-    solves."""
+    the total (``launches`` holds the first path's; ``launches_by_path``
+    each path's), and by (tableau, steps): its fine fan-outs and its
+    coarse solves."""
     from nngparareal_torch.ops import rk_cuda
 
     entry = state["kernels"][field]
-    entry["launches"] = rk_cuda.rk_fanout.launches_by_field[field]
-    entry["launches_by_shape"] = {
-        f"{tab} x {steps}": n for (name, tab, steps), n
-        in rk_cuda.rk_fanout.launches_by_shape.items() if name == field}
-    return entry["launches"]
+    n = rk_cuda.rk_fanout.launches_by_field[field]
+    by_path = entry.setdefault("launches_by_path", {})
+    by_path[path] = n
+    shapes = {f"{tab} x {steps}": k for (name, tab, steps), k
+              in rk_cuda.rk_fanout.launches_by_shape.items() if name == field}
+    if entry["launches"] is None:
+        entry["launches"] = n
+        entry["launches_by_shape"] = shapes
+    else:
+        entry.setdefault("launches_by_shape_by_path", {})[path] = shapes
+    return n, shapes
 
 
-def read_counts(state, field):
+def read_counts(state, field, path):
     """Read the counts just after a path ran; its field's kernel must have
     launched, and no other."""
     from nngparareal_torch.ops import rk_cuda
@@ -731,7 +779,7 @@ def read_counts(state, field):
     others = {k: v for k, v in counts.items() if k != field and v}
     if others or rk_cuda.rk_fanout.launches != counts[field]:
         raise PhaseError(f"the {field} path launched other kernels: {counts}")
-    return record_launches(state, field)
+    return record_launches(state, field, path)[0]
 
 
 def sweep_stats(out, N):
@@ -756,7 +804,7 @@ def phase_fhn_pde(state):
             FHN_PDE_DX, models=("nngp",), results_dir=None,
             nngp_kw=dict(optimizer="grid"), device=dev)
         torch.cuda.synchronize()
-        launches = read_counts(state, "fhn_pde")
+        launches = read_counts(state, "fhn_pde", "fhn_pde")
     finally:
         Parareal.run = run
     (p, out), = kept
@@ -835,12 +883,15 @@ def phase_table2(state):
     per_system = experiments._run_table2_system
     counts = {}
 
+    shapes = {}
+
     def counted(*args, **kwargs):
         zero_counts()
         row = per_system(*args, **kwargs)
         torch.cuda.synchronize()
         counts[row["system"]] = dict(rk_cuda.rk_fanout.launches_by_field)
-        record_launches(state, TABLE2[row["system"]][0])
+        shapes[row["system"]] = record_launches(
+            state, TABLE2[row["system"]][0], "table2")[1]
         return row
 
     kept = []
@@ -866,8 +917,7 @@ def phase_table2(state):
             raise PhaseError(f"{system}: its path must launch the {field} "
                              f"kernel and no other: {launches}")
         sys_info = {"launches": launches[field],
-                    "launches_by_shape":
-                        state["kernels"][field]["launches_by_shape"]}
+                    "launches_by_shape": shapes[system]}
         for (p, out), model in zip(runs, ("parareal", "nngp")):
             check_iterates(f"{system} {model}", p, out)
             sys_info[model] = run_info(out, p.N)
@@ -890,23 +940,25 @@ def phase_table2(state):
 
 def run_tomlab(state):
     """ThomasLabyrinth N=32 (tspan [0, 10], RK1 x10 / RK4 x31 250 per
-    slice) with the parareal model: the path of the tomlab field's kernel.
-    Its K must be the JAX package's on the CPU (30)."""
+    slice) with the parareal model through experiments.run_tomlab: the
+    path of the tomlab field's kernel. Its K must be the JAX package's on
+    the CPU (30)."""
     import torch
-    import nngparareal_torch as nt
+    from nngparareal_torch import experiments
+    from nngparareal_torch.driver import Parareal
 
     dev = state["device"]
-    ode = nt.ThomasLabyrinth(normalization="-11", device=dev)
-    cfg = nt.Config(ode, N=32).get()
-    solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
-                         G=cfg["G"], F=cfg["F"],
-                         device_field=ode.get_device_field(), device=dev)
-    p = nt.Parareal(ode, solver, cfg["tspan"], cfg["N"], epsilon=TABLE2_EPS,
-                    verbose=None, device=dev)
-    zero_counts()
-    out = p.run(model="parareal")
-    torch.cuda.synchronize()
-    launches = read_counts(state, "tomlab")
+    kept = []
+    run = keep_runs(kept)
+    try:
+        zero_counts()
+        experiments.run_tomlab(32, models=("parareal",), results_dir=None,
+                               device=dev)
+        torch.cuda.synchronize()
+        launches = read_counts(state, "tomlab", "table2")
+    finally:
+        Parareal.run = run
+    (p, out), = kept
     check_iterates("ThomasLabyrinth_32", p, out)
     if not out["converged"] or out["k"] != TOMLAB_K:
         raise PhaseError(f"ThomasLabyrinth_32 parareal: converged="
@@ -914,6 +966,113 @@ def run_tomlab(state):
                          f"{TOMLAB_K}")
     state["table2"].append(("ThomasLabyrinth_32 parareal", p, out))
     return {"launches": launches, "parareal": run_info(out, p.N)}
+
+
+def phase_table2_nm(state):
+    """Table 2 with the JAX package's default nnGP search (Nelder-Mead):
+    run_table2 with no nngp_kw, each system's launches counted alone."""
+    import numpy as np
+    import torch
+    from nngparareal_torch import experiments
+    from nngparareal_torch.driver import Parareal
+    from nngparareal_torch.models.nngp import NM_BLOCK
+
+    dev = state["device"]
+    per_system = experiments._run_table2_system
+    shapes = {}
+
+    def counted(*args, **kwargs):
+        zero_counts()
+        row = per_system(*args, **kwargs)
+        torch.cuda.synchronize()
+        field = TABLE2[row["system"]][0]
+        read_counts(state, field, "table2_nm")
+        shapes[row["system"]] = record_launches(state, field,
+                                                "table2_nm")[1]
+        return row
+
+    kept = []
+    run = keep_runs(kept)
+    experiments._run_table2_system = counted
+    try:
+        rows = experiments.run_table2(TABLE2_EPS, models=("nngp",),
+                                      results_dir=None, device=dev)
+    finally:
+        experiments._run_table2_system = per_system
+        Parareal.run = run
+    if [r["system"] for r in rows] != list(TABLE2):
+        raise PhaseError(f"table2_nm ran {[r['system'] for r in rows]}")
+    info = {}
+    failures = []
+    for row, (p, out) in zip(rows, kept):
+        system = row["system"]
+        check_iterates(f"{system} nngp (NM)", p, out)
+        state["table2"].append((f"{system} nngp (NM)", p, out))
+        its = out["timings"]["nm_iterations"]
+        sys_info = run_info(out, p.N)
+        sys_info.update(
+            launches=state["kernels"][TABLE2[system][0]]["launches_by_path"]
+            ["table2_nm"], launches_by_shape=shapes[system],
+            nm_searches=len(its), nm_iterations_mean=float(np.mean(its)),
+            nm_iterations_max=int(max(its)),
+            nm_graph_replays=out["timings"]["nm_graph_replays"],
+            # the card runs whole blocks of NM_BLOCK iterations
+            nm_iterations_run=NM_BLOCK * out["timings"]["nm_graph_replays"])
+        info[system] = sys_info
+        lo, hi = TABLE2_NM[system]
+        if not out["converged"] or not lo <= out["k"] <= hi:
+            failures.append(f"{system}: converged={out['converged']} "
+                            f"K={out['k']}, expected {lo}-{hi}")
+    if failures:
+        raise PhaseError("table2_nm K outside its limits: "
+                         + "; ".join(failures))
+    info["graph_vs_eager"] = graph_vs_eager(state, *kept[-1])
+    return info
+
+
+def graph_vs_eager(state, p, out):
+    """One prediction's Nelder-Mead search from a run's converged data:
+    the graphs' replay and the same search with eager launches must be
+    bitwise equal. Each is timed by the host clock between synchronises
+    (the graphs captured by a first search), per iteration run: the
+    replays' whole blocks, and the eager search's iterations up to the
+    one where every simplex had frozen (one host sync per iteration)."""
+    import torch
+    from nngparareal_torch.models import NNGParareal
+    from nngparareal_torch.ops import gp as gpops
+    from nngparareal_torch.ops.nn_select import nearest_neighbors
+
+    dev = state["device"]
+    X = torch.as_tensor(out["x"], device=dev)
+    D = torch.as_tensor(out["D"], device=dev)
+    valid = torch.ones(X.shape[0], dtype=X.dtype, device=dev)
+    mdl = NNGParareal(n=p.n, N=p.N, nn=15)
+    q = torch.as_tensor(out["u"][p.N // 2], device=dev)
+    idx, _ = nearest_neighbors(q, X, valid, 15)
+    sqd = gpops.pairwise_sq_dists(X[idx], X[idx])
+    mask = torch.ones(15, dtype=X.dtype, device=dev)
+    theta0 = torch.as_tensor(mdl.sweep_aux(0, p.N)[0], device=dev)
+    args = (sqd, D[idx], mask, theta0)
+    mdl._nm_search(*args, graphed=True)  # captures the graphs
+    timed = {}
+    for graphed in (True, False):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        timed[graphed] = mdl._nm_search(*args, graphed=graphed)
+        torch.cuda.synchronize()
+        timed[graphed] += (time.perf_counter() - tic,)
+    (th_g, fv_g, graph_s), (th_e, fv_e, eager_s) = timed[True], timed[False]
+    same = torch.equal(th_g, th_e) and torch.equal(fv_g, fv_e)
+    if not same:
+        raise PhaseError("Nelder-Mead graph replay differs from the eager "
+                         f"run: max |dtheta| "
+                         f"{(th_g - th_e).abs().max().item():.3e}")
+    run_graph = next(iter(mdl._graphs.values())).last["run"]
+    run_eager = mdl.nm_stats["iterations"][-1]
+    return {"bitwise": same, "tasks": mdl.B, "m": 15,
+            "iterations_graph": run_graph, "iterations_eager": run_eager,
+            "graph_ms_per_iteration": 1e3 * graph_s / run_graph,
+            "eager_ms_per_iteration": 1e3 * eager_s / max(run_eager, 1)}
 
 
 def phase_serial(state):
@@ -995,7 +1154,11 @@ def main():
               "this script", file=sys.stderr)
         return 2
 
-    phases = Phases()
+    # the whole output, the drivers' per-iteration lines included, also
+    # goes to a file: the standard output keeps the phases' lines only
+    os.makedirs(os.path.join(HERE, LOG_DIR), exist_ok=True)
+    log = open(os.path.join(HERE, LOG_DIR, "chip_smoke.log"), "w")
+    phases = Phases(log)
 
     def on_alarm(signum, frame):
         raise PhaseError(f"deadline of {DEADLINE_S}s hit in phase "
@@ -1012,6 +1175,7 @@ def main():
         phases.run("flagship", phase_flagship, state)
         phases.run("fhn_pde", phase_fhn_pde, state)
         phases.run("table2", phase_table2, state)
+        phases.run("table2_nm", phase_table2_nm, state)
         phases.run("serial", phase_serial, state)
     except Exception as exc:  # report the phase, exit nonzero
         signal.alarm(0)
@@ -1022,9 +1186,10 @@ def main():
         traceback.print_exc()
         return 1
     signal.alarm(0)
-    print(f"[total] {time.perf_counter() - t_start:.3f}s", flush=True)
-    print(json.dumps({"kernels": list(state["kernels"].values())}))
-    print(env["nvidia_smi"])
+    phases.emit(f"[total] {time.perf_counter() - t_start:.3f}s")
+    phases.emit(json.dumps({"kernels": list(state["kernels"].values())}))
+    phases.emit(env["nvidia_smi"])
+    log.close()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

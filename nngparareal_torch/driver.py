@@ -9,7 +9,8 @@ Port of ``nngparareal_tpu/driver.py:Parareal``. Each iteration does:
 3. **corrector sweep** ``u_{i+1} = model(u_i) + G(u_i)`` over the intervals
    [I, N): a host loop that queues each interval's coarse step and model
    prediction on the device without waiting for it. The card is waited
-   for once per iteration, at the convergence check.
+   for once per iteration, at the convergence check (and, with the
+   Nelder-Mead search, after each of its graph replays).
 
 The convergence bookkeeping (prefix freeze, err columns, early stop, the
 finite guards and the iterate clipping) follows the JAX package exactly:
@@ -38,7 +39,9 @@ from nngparareal_torch.utils.device import resolve_device
 from nngparareal_torch.utils.timing import wall_timed
 
 # run() keywords that configure the model; the rest go to the loop
-_MODEL_KEYS = ("nn", "seed", "optimizer")
+_MODEL_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol", "nm_max_iters",
+               "optimizer", "posterior", "grid_refine", "grid_walk",
+               "grid_polish", "score_dtype", "strategy")
 
 
 class Parareal:
@@ -103,11 +106,15 @@ class Parareal:
     # the corrector sweep
     # ------------------------------------------------------------------
 
-    def _sweep(self, model, ds, I, u_init, uG_init, uF, uG, u_prev, clip):
+    def _sweep(self, model, ds, I, u_init, uG_init, uF, uG, u_prev, clip,
+               aux=None):
         """Sequential corrector over the intervals [I, N).
 
-        Frozen intervals keep u_init/uG_init. Every op is queued on the
-        device; nothing here reads a value back to the host.
+        Frozen intervals keep u_init/uG_init; interval i's model gets
+        ``aux[i]`` (the iteration's draw, already on the device). Every op
+        is queued on the device; nothing here reads a value back to the
+        host, apart from what the model reads itself (the Nelder-Mead
+        search's convergence checks).
         """
         solver = self.solver
         N = self.N
@@ -119,7 +126,8 @@ class Parareal:
             u_i = u_rows[i]
             uF_ip1, uG_ip1 = uF[i + 1], uG[i + 1]
             uGn = solver.coarse_step_raw(t0_glob + i * dt_slice, dt_slice, u_i)
-            pred = model.predict_fn(ds, u_i, uF_ip1, uG_ip1, i)
+            pred = model.predict_fn(ds, u_i, uF_ip1, uG_ip1, i,
+                                    aux_i=None if aux is None else aux[i])
             # a GP prediction can come out non-finite when a near-singular
             # local Gram loses its Cholesky to rounding: fall back to the
             # classic parareal correction for those coordinates
@@ -255,9 +263,14 @@ class Parareal:
             model.add_train_time(k, time.perf_counter() - tic)
 
             # --- 4. corrector sweep ---
+            # the model's draw for this sweep (the Nelder-Mead starts of
+            # every interval), copied to the device once
+            aux = model.sweep_aux(k, N, ds.capacity)
+            if aux is not None:
+                aux = torch.as_tensor(aux, dtype=torch.float64, device=dev)
             tic = time.perf_counter()
             u_next, uG_next, err_dev = self._sweep(
-                model, ds, I, u_init, uG_init, uF, uG, u, clip)
+                model, ds, I, u_init, uG_init, uF, uG, u, clip, aux)
             # the iteration's one wait on the device: err goes to the host
             err = err_dev.cpu().numpy()
             dt_sweep = time.perf_counter() - tic

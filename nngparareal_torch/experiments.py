@@ -1,44 +1,64 @@
 """Experiment drivers: the paper's setups with their exact hyperparameters.
 
-Port of ``nngparareal_tpu/experiments.py`` for the runs the port can do:
+Port of ``nngparareal_tpu/experiments.py``:
 
-* ``run_fhn_pde`` -- the FHN 2D PDE d-scaling experiment (dx in {10..16},
-  N=512, nnGP nn=20), with the scaling driver's fine step count
-  Nf = ceil(1e8 / Ng_tot) * Ng_tot / N; ``fhn_pde_parareal`` builds its
-  Parareal.
-* ``run_table2`` -- iterations to convergence of the paper's Table 2: six
-  ODE systems (FHN, Rossler, Hopf N=32, Brusselator, Lorenz, DblPend) at
-  their published configurations, nnGP with the neighbour count of each
-  system and tolerance (``_TABLE2_SYSTEMS``).
+* ``run_hopf``    -- Hopf scalability (N in {32..512}, fine steps x10 000
+                     paged in Nf/25 chunks, nnGP nn=15, two restarts);
+* ``run_tomlab``  -- ThomasLabyrinth scalability (nnGP nn=18, fatol=xatol
+                     =1e-3);
+* ``run_burgers`` -- viscous Burgers d=N=128 over [0, T] (nnGP nn=18, seed
+                     45): the flagship configuration of bench.py;
+* ``run_fhn_pde`` -- the FHN 2D PDE d-scaling run (dx in {10..16}, N=512,
+                     nnGP nn=20), with the scaling driver's fine step count
+                     Nf = ceil(1e8 / Ng_tot) * Ng_tot / N
+                     (``fhn_pde_parareal`` builds its Parareal);
+* ``run_table2``  -- iterations to convergence of the paper's Table 2: six
+                     ODE systems (FHN, Rossler, Hopf N=32, Brusselator,
+                     Lorenz, DblPend) at their published configurations;
+* ``run_burgers_across_m`` -- K against the neighbour count m, each seed
+                     threaded into the nnGP's Nelder-Mead starts;
+* ``main``        -- the command line: ``python -m
+                     nngparareal_torch.experiments``.
 
-Each model runs in turn on the card (``device=None``) or wherever
-``device`` says; ``results_dir`` receives the pickled summary rows.
+The nnGP runs the JAX default search, Nelder-Mead, unless ``nngp_kw``
+says otherwise (``dict(optimizer='grid')``); the port's ``run_table2``
+takes ``nngp_kw`` as every other driver does. Each model runs in turn on
+the card (``device=None``) or wherever ``device`` says; ``results_dir``
+receives the pickled summary rows.
 
-The nnGP search is named through ``nngp_kw`` (``dict(optimizer='grid')``):
-the JAX package's default, Nelder-Mead, is not ported, and an nnGP run
-that names no optimizer is refused before any model runs. The JAX
-``run_table2`` has no ``nngp_kw`` (its nnGP always runs Nelder-Mead); the
-port's takes it as both packages' ``run_fhn_pde`` do. Not ported yet
-(ROADMAP.md): the GParareal model ``gpjax`` that ``MODELS_DEFAULT`` names,
-which is refused before anything runs; the ``mesh`` argument (multi-GPU
-slice sharding) and ``run_table2``'s process ``pool``, both refused;
-``run_hopf``, ``run_tomlab``, ``run_burgers`` and the command line.
+Not ported yet (ROADMAP.md), each refused before any model runs: the
+GParareal model ``gpjax`` that ``MODELS_DEFAULT`` names (and ``gp_kw``,
+its settings), ``mesh=`` (multi-GPU slice sharding) and ``run_table2``'s
+process ``pool=``.
 """
 
 import numpy as np
 
 from nngparareal_torch.driver import Parareal
-from nngparareal_torch.models import NNGParareal
 from nngparareal_torch.reporting import calc_speedup, est_serial
 from nngparareal_torch.solver import RKSolver
 from nngparareal_torch.systems import (
-    FHNODE, Rossler, Hopf, DblPend, Brusselator, Lorenz, FHNPDE,
+    FHNODE, Rossler, Hopf, DblPend, Brusselator, Lorenz, ThomasLabyrinth,
+    FHNPDE, Burgers,
 )
 from nngparareal_torch.systems.configs import Config
 from nngparareal_torch.utils.io import store_pickle
 
 MODELS_DEFAULT = ("parareal", "gpjax", "nngp")
 _PORTED_MODELS = ("parareal", "nngp")
+_TODO = "is not ported yet (ROADMAP.md, modules still to port)"
+
+
+def _refuse(mesh=None, gp_kw=None, pool=None):
+    """The arguments of parts not ported yet, refused before any run."""
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= (multi-GPU slice sharding) {_TODO}")
+    if gp_kw is not None:
+        raise NotImplementedError(f"gp_kw (the GParareal model's settings) "
+                                  f"{_TODO}")
+    if pool:
+        raise NotImplementedError(f"run_table2's pool= (a process per "
+                                  f"system) {_TODO}")
 
 
 def _summarize(name, out, N):
@@ -58,15 +78,17 @@ def _summarize(name, out, N):
     }
 
 
-def _run_models(p, model_kwargs, models, results_dir, tag, nngp_kw=None,
-                **common):
+def _check_models(models):
     missing = [m for m in models if m not in _PORTED_MODELS]
     if missing:
         raise NotImplementedError(
             f"models {missing} are not ported yet (ROADMAP.md, modules still "
             f"to port); the port runs {list(_PORTED_MODELS)}")
-    if "nngp" in models:
-        NNGParareal.check_optimizer((nngp_kw or {}).get("optimizer"))
+
+
+def _run_models(p, model_kwargs, models, results_dir, tag, nngp_kw=None,
+                **common):
+    _check_models(models)
     rows = []
     for mdl in models:
         kw = dict(common)
@@ -79,6 +101,69 @@ def _run_models(p, model_kwargs, models, results_dir, tag, nngp_kw=None,
         if results_dir:
             store_pickle(rows, f"{tag}.pkl", results_dir)
     return rows
+
+
+def run_hopf(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
+             store_int=False, fine_mult=10000, nngp_kw=None, gp_kw=None,
+             device=None):
+    """Hopf scalability: the Config's fine step count x ``fine_mult``,
+    fine solves paged in Nf/25 chunks (the plain path; the kernel takes
+    every step in one launch)."""
+    _refuse(mesh, gp_kw)
+    _check_models(models)
+    ode = Hopf(normalization="-11", device=device)
+    cfg = Config(ode, N=N).get()
+    Nf = cfg["Nf"] * fine_mult
+    solver = RKSolver(
+        ode.get_vector_field(), cfg["Ng"], Nf, G=cfg["G"], F=cfg["F"],
+        thresh=max(Nf // 25, 1), device_field=ode.get_device_field(),
+        device=device,
+    )
+    p = Parareal(ode, solver, cfg["tspan"], N, epsilon=5e-7, device=device)
+    model_kwargs = {
+        "nngp": dict(fatol=1e-1, xatol=1e-1, nn=15, n_restarts=2, seed=45),
+    }
+    return _run_models(p, model_kwargs, models, results_dir, f"hopf_{N}",
+                       store_int=store_int, nngp_kw=nngp_kw)
+
+
+def run_tomlab(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
+               store_int=False, nngp_kw=None, gp_kw=None, device=None):
+    """Thomas labyrinth scalability (T and the step counts per N from its
+    Config)."""
+    _refuse(mesh, gp_kw)
+    _check_models(models)
+    ode = ThomasLabyrinth(normalization="-11", device=device)
+    cfg = Config(ode, N=N).get()
+    solver = RKSolver(
+        ode.get_vector_field(), cfg["Ng"], cfg["Nf"], G=cfg["G"], F=cfg["F"],
+        device_field=ode.get_device_field(), device=device,
+    )
+    p = Parareal(ode, solver, cfg["tspan"], N, epsilon=5e-7, device=device)
+    model_kwargs = {
+        "nngp": dict(nn=18, n_restarts=1, fatol=1e-3, xatol=1e-3, seed=45),
+    }
+    return _run_models(p, model_kwargs, models, results_dir, f"tomlab_{N}",
+                       store_int=store_int, nngp_kw=nngp_kw)
+
+
+def run_burgers(T=5.9, N=128, models=MODELS_DEFAULT, results_dir="results",
+                mesh=None, store_int=False, nn=18, seed=45, nngp_kw=None,
+                device=None):
+    """Viscous Burgers d=N=128 over [0, T]: RK1 x4 / RK8 x40 000 per
+    slice."""
+    _refuse(mesh)
+    _check_models(models)
+    ode = Burgers(d_x=N, normalization="-11", device=device)
+    Ng = 4  # per slice; Ng=4N in all
+    Nf = Ng * 10000
+    solver = RKSolver(ode.get_vector_field(), Ng, Nf, G="RK1", F="RK8",
+                      device_field=ode.get_device_field(), device=device)
+    p = Parareal(ode, solver, [0.0, T], N, epsilon=5e-7, device=device)
+    model_kwargs = {"nngp": dict(nn=nn, seed=seed)}
+    return _run_models(p, model_kwargs, models, results_dir,
+                       f"burgers_{N}_T{T}", store_int=store_int,
+                       nngp_kw=nngp_kw)
 
 
 def fhn_pde_parareal(dx, device=None):
@@ -103,9 +188,10 @@ def fhn_pde_parareal(dx, device=None):
 
 
 def run_fhn_pde(dx, models=MODELS_DEFAULT, results_dir="results",
-                store_int=False, nngp_kw=None, device=None):
+                mesh=None, store_int=False, nngp_kw=None, device=None):
     """FHN 2D PDE d-scaling run at grid width dx (``fhn_pde_parareal``)
     for each model; returns the summary rows."""
+    _refuse(mesh)
     p = fhn_pde_parareal(dx, device=device)
     model_kwargs = {"nngp": dict(nn=20)}
     return _run_models(
@@ -147,20 +233,17 @@ def _run_table2_system(idx, epsilon, models, device=None, nngp_kw=None):
 
 
 def run_table2(epsilon=5e-7, models=MODELS_DEFAULT, results_dir="results",
-               mesh=None, systems=None, pool=None, device=None,
+               mesh=None, systems=None, pool=None, gp_kw=None, device=None,
                nngp_kw=None):
     """Iterations to convergence across the six ODE systems of Table 2,
     one system after another; returns one row per system.
 
     ``systems``: optional subset of system names (e.g. ["FHN_ODE"]).
-    ``nngp_kw``: the nnGP's overrides; it must name the search
-    (``dict(optimizer='grid')``), which the JAX ``run_table2`` does not
-    take. ``mesh`` and ``pool`` are not ported and raise."""
-    if mesh is not None or pool:
-        raise NotImplementedError(
-            "run_table2's mesh= (multi-GPU slice sharding) and pool= (a "
-            "process per system) are not ported yet (ROADMAP.md, modules "
-            "still to port, item 9)")
+    ``nngp_kw``: the nnGP's overrides (the JAX ``run_table2`` has none;
+    its nnGP always runs Nelder-Mead, as the port's does without them).
+    ``mesh``, ``pool`` and ``gp_kw`` are not ported and raise."""
+    _refuse(mesh, gp_kw, pool)
+    _check_models(models)
     sel = [i for i, (ctor, _, _) in enumerate(_TABLE2_SYSTEMS)
            if systems is None
            or ctor(normalization="-11", device=device).name in systems]
@@ -171,3 +254,102 @@ def run_table2(epsilon=5e-7, models=MODELS_DEFAULT, results_dir="results",
         if results_dir:
             store_pickle(rows, f"table2_eps{epsilon:g}.pkl", results_dir)
     return rows
+
+
+def run_burgers_across_m(ms=range(11, 31), seeds=range(100), T=5.9,
+                         results_dir="results", mesh=None, device=None):
+    """K and speedup against the neighbour count m, over seeds: each seed
+    is the nnGP's, so it draws the Nelder-Mead starts. A run that raises is
+    recorded as a row with its error."""
+    _refuse(mesh)
+    rows = []
+    for m in ms:
+        for seed in seeds:
+            try:
+                res = run_burgers(T=T, models=("nngp",), results_dir=None,
+                                  nn=m, seed=int(seed), device=device)[0]
+                rows.append({"m": m, "seed": seed, "k": res["k"],
+                             "speedup": res["speedup"]})
+            except Exception as e:  # record failures as data rows
+                rows.append({"m": m, "seed": seed, "error": str(e)})
+            if results_dir:
+                store_pickle(rows, f"burgers_across_m_T{T}.pkl", results_dir)
+    return rows
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="nngparareal_torch experiments (the PyTorch/CUDA port). "
+                    "The default --models names gpjax (GParareal), which is "
+                    "not ported yet and is refused: pass --models parareal "
+                    "nngp. --mesh-devices, --pool, --gp-f32 and "
+                    "--gp-nm-iters are refused too (ROADMAP.md).")
+    ap.add_argument("experiment", choices=[
+        "hopf", "tomlab", "burgers", "fhn_pde", "table2", "burgers_m",
+    ])
+    ap.add_argument("--N", type=int, default=None)
+    ap.add_argument("--dx", type=int, default=None)
+    ap.add_argument("--T", type=float, default=5.9)
+    ap.add_argument("--epsilon", type=float, default=5e-7)
+    ap.add_argument("--models", nargs="+", default=list(MODELS_DEFAULT),
+                    help="default: parareal gpjax nngp (gpjax is refused)")
+    ap.add_argument("--results-dir", default="results")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="not ported: refused")
+    ap.add_argument("--nngp-grid", action="store_true",
+                    help="nnGP grid hyperopt (default: Nelder-Mead, the "
+                         "reference's search)")
+    ap.add_argument("--gp-f32", action="store_true",
+                    help="not ported (GParareal): refused")
+    ap.add_argument("--gp-nm-iters", type=int, default=None,
+                    help="not ported (GParareal): refused")
+    ap.add_argument("--pool", type=int, default=None,
+                    help="not ported: refused")
+    ap.add_argument("--systems", nargs="+", default=None,
+                    help="table2: subset of system names")
+    args = ap.parse_args(argv)
+
+    for flag, val in (("--mesh-devices", args.mesh_devices),
+                      ("--pool", args.pool), ("--gp-f32", args.gp_f32),
+                      ("--gp-nm-iters", args.gp_nm_iters)):
+        if val:
+            raise NotImplementedError(f"{flag} {_TODO}")
+    models = tuple(args.models)
+    nngp_kw = dict(optimizer="grid") if args.nngp_grid else None
+    dev = args.device
+    if args.experiment == "hopf":
+        rows = run_hopf(args.N or 32, models, args.results_dir,
+                        nngp_kw=nngp_kw, device=dev)
+    elif args.experiment == "tomlab":
+        rows = run_tomlab(args.N or 32, models, args.results_dir,
+                          nngp_kw=nngp_kw, device=dev)
+    elif args.experiment == "burgers":
+        rows = run_burgers(args.T, args.N or 128, models, args.results_dir,
+                           nngp_kw=nngp_kw, device=dev)
+    elif args.experiment == "fhn_pde":
+        rows = run_fhn_pde(args.dx or 10, models, args.results_dir,
+                           nngp_kw=nngp_kw, device=dev)
+    elif args.experiment == "table2":
+        rows = run_table2(args.epsilon, models, args.results_dir,
+                          systems=args.systems, device=dev, nngp_kw=nngp_kw)
+    else:
+        rows = run_burgers_across_m(T=args.T, results_dir=args.results_dir,
+                                    device=dev)
+
+    for r in rows:
+        if "runs" in r:
+            for rr in r["runs"]:
+                print(r["system"], rr["name"], "K =", rr["k"],
+                      f"speedup = {rr['speedup']:.2f}")
+        elif "k" in r:
+            print(r.get("name", f"m={r.get('m')}"), "K =", r["k"],
+                  f"speedup = {r.get('speedup', float('nan')):.2f}")
+    return rows
+
+
+if __name__ == "__main__":
+    main()

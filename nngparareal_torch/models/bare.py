@@ -10,5 +10,5 @@ class BareParareal(ModelBase):
     name = "Parareal"
     needs_dataset = False
 
-    def predict_fn(self, ds, q, uF_prev, uG_prev, i):
+    def predict_fn(self, ds, q, uF_prev, uG_prev, i, aux_i=None):
         return uF_prev - uG_prev

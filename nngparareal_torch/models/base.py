@@ -3,11 +3,12 @@
 Port of ``nngparareal_tpu/models/base.py``. A model provides
 
 * ``fit(ds, k)``         once per parareal iteration;
-* ``predict_fn(ds, q, uF_prev, uG_prev, i)``  the correction for one
-                           interval, called by the driver's corrector
-                           sweep; it must queue device work only (no host
-                           synchronisation), so the sweep's launches stay
-                           asynchronous.
+* ``sweep_aux(k, N, cap)`` once per sweep: a host draw (numpy) whose
+                           row i the driver hands interval i, or None;
+* ``predict_fn(ds, q, uF_prev, uG_prev, i, aux_i)``  the correction for
+                           one interval, called by the driver's corrector
+                           sweep; it queues device work (the Nelder-Mead
+                           search alone reads its convergence back).
 
 The dataset is a fixed-capacity padded buffer (``Dataset``) with a
 validity mask, as in the JAX package; the port appends rows in place.
@@ -85,14 +86,19 @@ class ModelBase:
         """Per-iteration training."""
         return None
 
-    def predict_fn(self, ds, q, uF_prev, uG_prev, i):
+    def predict_fn(self, ds, q, uF_prev, uG_prev, i, aux_i=None):
         """Correction prediction for interval i.
 
         q: (n,) current iterate at the interval's left node;
         uF_prev/uG_prev: (n,) fine/coarse values from the previous
-        iteration at the right node. Returns the predicted defect (n,).
+        iteration at the right node; aux_i: row i of ``sweep_aux``'s
+        draw. Returns the predicted defect (n,).
         """
         raise NotImplementedError
+
+    def sweep_aux(self, k, N, cap=None):
+        """Per-sweep random draw (N, ...) or None (no draw)."""
+        return None
 
     def reset_rng(self):
         """Re-seed any host RNG."""

@@ -23,6 +23,51 @@ import torch
 _LOG_2PI = math.log(2 * math.pi)
 
 
+def pow10(x):
+    """10**x elementwise, one rounding for every element.
+
+    On the CPU torch's pow rounds a contiguous vector's body with SIMD
+    (SLEEF) and its tail with ``std::pow``, so a candidate's kernel value
+    would depend on its lane: the search and the posterior could factor
+    the same theta differently, one of them failing at the singular
+    boundary. A strided input keeps every element on ``std::pow``, which
+    is what XLA computes on the CPU (bitwise). A card has one path.
+    """
+    if x.device.type != "cpu":
+        return torch.pow(10.0, x)
+    buf = x.new_empty(x.shape + (2,))
+    buf[..., 0] = x
+    return torch.pow(10.0, buf[..., 0])
+
+
+def sum0(x):
+    """Sum over the leading axis, one term after another, as XLA sums it
+    on the CPU. ``torch.sum`` splits 8 or more terms over several
+    accumulators, and a card's ``cumsum`` scans a (m, 1) tensor as its
+    innermost axis, in a tree: either makes a lane's value depend on the
+    other axes' sizes."""
+    acc = x[0]
+    for t in range(1, x.shape[0]):
+        acc = acc + x[t]
+    return acc
+
+
+def dot0(a, b):
+    """sum_t a[t] * b[t] over the leading axis as XLA computes
+    ``jnp.sum(a * b, axis=0)`` on the CPU: one fused multiply-add after
+    another into a running sum (``addcmul`` is an FMA).
+
+    The order decides the last bits, and on the ill-conditioned local
+    Grams those decide whether a pivot fails; it also makes every lane's
+    value independent of how many lanes a call has, so the search and the
+    posterior factor the same candidate alike.
+    """
+    acc = a[0] * b[0]
+    for t in range(1, a.shape[0]):
+        acc = torch.addcmul(acc, a[t], b[t])
+    return acc
+
+
 def k_se_log10_lanes(sqd, theta):
     """SE kernel values for B candidate thetas at once.
 
@@ -31,8 +76,7 @@ def k_se_log10_lanes(sqd, theta):
     """
     sx = theta[:, 0]
     sy = theta[:, 1]
-    return torch.pow(10.0, sy) * torch.exp(
-        -0.5 * torch.pow(10.0, -sx) * sqd[:, :, None])
+    return pow10(sy) * torch.exp(-0.5 * pow10(-sx) * sqd[:, :, None])
 
 
 def masked_gram_lanes(K, mask, jitter_pow):
@@ -42,65 +86,85 @@ def masked_gram_lanes(K, mask, jitter_pow):
     m2 = (mask[:, None] * mask[None, :])[:, :, None]
     eye = torch.eye(m, dtype=K.dtype, device=K.device)
     Km = K * m2 + (eye * (1.0 - mask)[None, :])[:, :, None]
-    return Km + eye[:, :, None] * torch.pow(10.0, jitter_pow)[None, None, :]
+    return Km + eye[:, :, None] * pow10(jitter_pow)[None, None, :]
 
 
 def cholesky_lanes(A):
     """Cholesky of A (m, m, B), one column at a time; all ops (*, B).
 
-    Column j is stored at ``cols[j]`` (m, B), as in the JAX package's
+    Column j is A[:, j] less sum_t L[:, t] L[j, t] over t < j, summed as
+    ``dot0`` sums: a running sum per column takes each new column's
+    products as one FMA (right-looking, one op per column). Column j is
+    stored at ``cols[j]`` (m, B), as in the JAX package's
     ``jnp.stack(cols, axis=0)``; the result is returned as (m, m, B).
     """
     m, _, B = A.shape
     cols = torch.empty((m, m, B), dtype=A.dtype, device=A.device)
+    # acc[k]: the running sum of column k over the columns done so far
+    acc = torch.empty_like(cols)
     rows = torch.arange(m, device=A.device)
     for j in range(m):
         s = A[:, j, :]
         if j:
-            prior = cols[:j]  # (j, m, B)
-            Lj = prior[:, j, :]  # (j, B)
-            s = s - torch.sum(prior * Lj[:, None, :], dim=0)
+            s = s - acc[j]
         d = torch.sqrt(s[j])
         col = s / d[None, :]
         col[j] = d
         if j:
             col = torch.where((rows >= j)[:, None], col, 0.0)
         cols[j] = col
+        if j + 1 < m:
+            prod = (col[None, :, :], col[j + 1:, None, :])
+            if j:
+                acc[j + 1:].addcmul_(*prod)
+            else:
+                torch.mul(*prod, out=acc[1:])
     return cols.permute(1, 0, 2)
 
 
 def solve_lower_lanes(L, Y):
-    """Solve L Z = Y; L (m, m, B), Y (m, r, B or 1) -> Z (m, r, B)."""
+    """Solve L Z = Y; L (m, m, B), Y (m, r, B or 1) -> Z (m, r, B).
+
+    Row j is (Y[j] - sum_t L[j, t] Z[t]) / L[j, j], the sum over t < j in
+    increasing t as ``dot0`` sums it (one FMA per solved row into the
+    running sums of the rows below)."""
     m, _, B = L.shape
     r = Y.shape[1]
-    Z = torch.empty((m, r, B), dtype=torch.promote_types(L.dtype, Y.dtype),
-                    device=L.device)
+    dt = torch.promote_types(L.dtype, Y.dtype)
+    Z = torch.empty((m, r, B), dtype=dt, device=L.device)
+    acc = torch.empty_like(Z)
     for j in range(m):
-        acc = Y[j]
-        if j:
-            Lrow = L[j, :j, :]  # (j, B)
-            acc = acc - torch.sum(Z[:j] * Lrow[:, None, :], dim=0)
-        Z[j] = acc / L[j, j][None, :]
+        a = Y[j] - acc[j] if j else Y[j]
+        Z[j] = a / L[j, j][None, :]
+        if j + 1 < m:
+            prod = (Z[j][None], L[j + 1:, j, :][:, None, :])
+            if j:
+                acc[j + 1:].addcmul_(*prod)
+            else:
+                torch.mul(*prod, out=acc[1:])
     return Z
 
 
 def solve_upper_lanes(U, Y):
-    """Solve U X = Y with U upper-triangular (m, m, B), Y (m, r, B)."""
+    """Solve U X = Y with U upper-triangular (m, m, B), Y (m, r, B).
+
+    Rows are solved from the last up; row j's sum over the rows below it
+    takes them in that order (the JAX package stacks them as solved), one
+    FMA per solved row into the running sums of the rows above."""
     m, _, B = U.shape
     r = Y.shape[1]
     X = torch.empty((m, r, B), dtype=torch.promote_types(U.dtype, Y.dtype),
                     device=U.device)
-    # done[idx] holds row m-1-idx: the JAX package sums rows j+1.. in
-    # reverse order (stacked as they were solved)
-    done = torch.empty_like(X)
-    for idx, j in enumerate(range(m - 1, -1, -1)):
-        acc = Y[j]
-        if idx:
-            Urow = U[j, j + 1:, :].flip(0)  # (idx, B), rows m-1 .. j+1
-            acc = acc - torch.sum(done[:idx] * Urow[:, None, :], dim=0)
-        val = acc / U[j, j][None, :]
-        done[idx] = val
-        X[j] = val
+    acc = torch.empty_like(X)
+    for j in range(m - 1, -1, -1):
+        a = Y[j] - acc[j] if j < m - 1 else Y[j]
+        X[j] = a / U[j, j][None, :]
+        if j:
+            prod = (X[j][None], U[:j, j, :][:, None, :])
+            if j < m - 1:
+                acc[:j].addcmul_(*prod)
+            else:
+                torch.mul(*prod, out=acc[:j])
     return X
 
 
@@ -119,10 +183,9 @@ def nll_lanes(sqd, Y, theta, jitter_pow, mask):
     else:
         Ym = Y * mask[:, None, None]
     Z = solve_lower_lanes(L, Ym)  # (m, r, B)
-    quad = 0.5 * torch.sum(Z * Z, dim=0)  # (r, B)
+    quad = 0.5 * dot0(Z, Z)  # (r, B)
     diag = torch.diagonal(L, dim1=0, dim2=1).T  # (m, B)
-    logdet = torch.sum(
-        torch.where(mask[:, None] > 0, torch.log(diag), 0.0), dim=0)
+    logdet = sum0(torch.where(mask[:, None] > 0, torch.log(diag), 0.0))
     count = torch.sum(mask)
     nll = quad + logdet[None, :] + 0.5 * count * _LOG_2PI
     return torch.where(torch.isfinite(nll), nll, torch.inf)
@@ -142,4 +205,4 @@ def posterior_mean_lanes(sqd, sqd_q, Y, theta, jitter_pow, mask):
     Z = solve_lower_lanes(L, Ym)
     alpha = solve_upper_lanes(L.transpose(0, 1), Z)[:, 0, :]  # (m, B)
     k_star = k_se_log10_lanes(sqd_q[:, None], theta)[:, 0, :] * mask[:, None]
-    return torch.sum(k_star * alpha, dim=0)
+    return dot0(k_star, alpha)

@@ -1,0 +1,202 @@
+"""Port parity for the experiment drivers that need Nelder-Mead:
+``run_hopf``, ``run_tomlab``, ``run_burgers``, ``run_burgers_across_m``
+and the command line ``main``.
+
+* Each driver builds the JAX package's run: both packages' drivers stop
+  at ``_run_models``, and the Parareal, its solver (N, tspan, Ng, Nf,
+  thresh, G, F, eps, u0) and the model keywords are equal.
+* ``run_burgers_across_m`` threads each seed into the nnGP: the first
+  sweep's Nelder-Mead starts are JAX's for every seed, differ between
+  seeds, and repeat for a repeated seed.
+* ``main`` dispatches each experiment with JAX's arguments (the nnGP with
+  Nelder-Mead, or the grid with ``--nngp-grid``) and refuses, before any
+  model runs and naming ROADMAP.md: the default ``--models`` (it names
+  ``gpjax``), ``--mesh-devices``, ``--pool``, ``--gp-f32`` and
+  ``--gp-nm-iters``; ``--help`` says so.
+
+No model runs here: ``Parareal._parareal`` is stubbed where a call would
+run one. tests/test_torch_experiments_runs.py runs the drivers.
+"""
+
+import numpy as np
+import pytest
+
+from nngparareal_tpu import driver as jdriver
+from nngparareal_tpu import experiments as jexp
+
+from nngparareal_torch import driver as tdriver
+from nngparareal_torch import experiments as texp
+
+
+def _capture(seen, name):
+    def stub(p, model_kwargs, models, results_dir, tag, nngp_kw=None,
+             **common):
+        seen[name] = dict(p=p, model_kwargs=model_kwargs, models=models,
+                          tag=tag, nngp_kw=nngp_kw, common=common)
+        return []
+    return stub
+
+
+def _built(pj, pt):
+    """The two Parareals and their solvers agree."""
+    sj, st = pj.solver, pt.solver
+    assert (st.Ng, st.Nf, st.thresh, st.G.name, st.F.name) == (
+        sj.Ng, sj.Nf, sj.thresh, sj.G.name, sj.F.name)
+    assert (pt.tspan, pt.N, pt.epsilon, pt.ode_name) == (
+        tuple(float(x) for x in pj.tspan), pj.N, pj.epsilon, pj.ode_name)
+    np.testing.assert_array_equal(pt.u0.numpy(), np.asarray(pj.u0))
+    assert st.device_field is not None
+
+
+DRIVERS = [
+    ("run_hopf", dict(N=32)),
+    ("run_hopf", dict(N=512, fine_mult=3)),
+    ("run_tomlab", dict(N=32)),
+    ("run_tomlab", dict(N=128, store_int=True)),
+    ("run_burgers", dict()),
+    ("run_burgers", dict(T=5.0, N=16, nn=12, seed=7)),
+]
+
+
+@pytest.mark.parametrize("fn,kw", DRIVERS)
+def test_driver_builds_the_jax_run(fn, kw, monkeypatch):
+    seen = {}
+    monkeypatch.setattr(jexp, "_run_models", _capture(seen, "jax"))
+    monkeypatch.setattr(texp, "_run_models", _capture(seen, "torch"))
+    args = dict(kw, models=("parareal", "nngp"), results_dir=None)
+    getattr(jexp, fn)(**args)
+    getattr(texp, fn)(device="cpu", **args)
+    j, t = seen["jax"], seen["torch"]
+    pj, pt = j.pop("p"), t.pop("p")
+    j["common"].pop("mesh")  # multi-GPU sharding is not ported
+    j["model_kwargs"].pop("gpjax", None)  # GParareal is not ported
+    assert t == j
+    _built(pj, pt)
+
+
+@pytest.mark.parametrize("fn", ["run_hopf", "run_tomlab", "run_burgers",
+                                "run_table2", "run_burgers_across_m"])
+def test_driver_refusals(fn, monkeypatch):
+    """gpjax (GParareal), its gp_kw, and mesh= are refused before any
+    model runs."""
+    models = []
+    monkeypatch.setattr(tdriver.Parareal, "_parareal",
+                        lambda self, model, **kw: models.append(model))
+    pos = {"run_hopf": (32,), "run_tomlab": (32,)}.get(fn, ())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(texp, fn)(*pos, results_dir=None, device="cpu",
+                          mesh=object())
+    if fn not in ("run_burgers", "run_burgers_across_m"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            getattr(texp, fn)(*pos, models=("nngp",), results_dir=None,
+                              device="cpu", gp_kw=dict(theta=[1, 1]))
+    if fn != "run_burgers_across_m":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            getattr(texp, fn)(*pos, results_dir=None, device="cpu")
+    assert models == []
+
+
+class _Stop(Exception):
+    pass
+
+
+def _first_draw(draws):
+    """Parareal._parareal of either package: record the model's seed,
+    neighbour count and first sweep's draw, and stop."""
+    def run(self, model, **kw):
+        aux = model.sweep_aux(0, self.N, 64)
+        aux = aux["theta0"] if isinstance(aux, dict) else aux
+        draws.append((model.seed, model.nn, np.asarray(aux)))
+        raise _Stop
+    return run
+
+
+def test_burgers_across_m_threads_the_seed(monkeypatch):
+    got, want = [], []
+    monkeypatch.setattr(tdriver.Parareal, "_parareal", _first_draw(got))
+    monkeypatch.setattr(jdriver.Parareal, "_parareal", _first_draw(want))
+    kw = dict(ms=[12, 13], seeds=[3, 4, 3], T=5.9, results_dir=None)
+    rows_t = texp.run_burgers_across_m(device="cpu", **kw)
+    rows_j = jexp.run_burgers_across_m(**kw)
+    # each run stopped in the stub and was recorded as an error row
+    assert [(r["m"], r["seed"]) for r in rows_t] == [
+        (r["m"], r["seed"]) for r in rows_j] == [
+        (m, s) for m in (12, 13) for s in (3, 4, 3)]
+    assert len(got) == len(want) == 6
+    for (st, nt, at), (sj, nj, aj) in zip(got, want):
+        assert (st, nt) == (sj, nj)
+        np.testing.assert_array_equal(at, aj)
+    assert got[0][2].shape == (128, 128 * 9, 2)
+    assert not np.array_equal(got[0][2], got[1][2])  # seeds 3 and 4
+    np.testing.assert_array_equal(got[0][2], got[2][2])  # seed 3 again
+
+
+def _fake_out(model):
+    return {"k": 2, "converged": True, "conv_int": [1, 2], "err": None,
+            "timings": {"core_t": 1.0, "F_time": 0.0, "G_time": 0.0,
+                        "mdl_tot_t": 0.0, "F_time_serial_avg": 0.0}}
+
+
+def _record_models(models):
+    def run(self, model, **kw):
+        models.append((self, model, kw))
+        return _fake_out(model)
+    return run
+
+
+@pytest.mark.parametrize("argv,check", [
+    (["table2", "--models", "parareal", "nngp", "--systems", "FHN_ODE"],
+     dict(n_runs=2, optimizer="nm", nn=15, N=40)),
+    (["table2", "--models", "nngp", "--nngp-grid", "--systems", "Lorenz",
+      "--epsilon", "5e-9"], dict(n_runs=1, optimizer="grid", nn=13, N=50)),
+    (["hopf", "--models", "nngp", "--N", "64"],
+     dict(n_runs=1, optimizer="nm", nn=15, N=64, n_restarts=2)),
+    (["tomlab", "--models", "nngp"],
+     dict(n_runs=1, optimizer="nm", nn=18, N=32, fatol=1e-3)),
+    (["burgers", "--models", "nngp", "--N", "16", "--T", "5"],
+     dict(n_runs=1, optimizer="nm", nn=18, N=16)),
+    (["fhn_pde", "--models", "parareal", "--dx", "10"],
+     dict(n_runs=1, N=512)),
+])
+def test_main_runs_the_jax_arguments(argv, check, monkeypatch, tmp_path,
+                                     capsys):
+    models = []
+    monkeypatch.setattr(tdriver.Parareal, "_parareal",
+                        _record_models(models))
+    rows = texp.main(argv + ["--device", "cpu", "--results-dir",
+                             str(tmp_path)])
+    assert len(models) == check["n_runs"] and rows
+    p, mdl, _ = models[-1]
+    assert p.N == check["N"]
+    for key in ("optimizer", "nn", "n_restarts", "fatol"):
+        if key in check:
+            assert getattr(mdl, key) == check[key], key
+    if "--epsilon" in argv:
+        assert p.epsilon == 5e-9
+    assert "K = 2" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["table2"],  # the default --models names gpjax
+    ["hopf", "--models", "parareal", "gpjax"],
+    ["table2", "--models", "nngp", "--mesh-devices", "2"],
+    ["table2", "--models", "nngp", "--pool", "2"],
+    ["hopf", "--models", "nngp", "--gp-f32"],
+    ["tomlab", "--models", "nngp", "--gp-nm-iters", "50"],
+])
+def test_main_refusals(argv, monkeypatch):
+    models = []
+    monkeypatch.setattr(tdriver.Parareal, "_parareal",
+                        _record_models(models))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        texp.main(argv + ["--device", "cpu", "--results-dir", "unused"])
+    assert models == []
+
+
+def test_main_help_names_the_refusals(capsys):
+    with pytest.raises(SystemExit):
+        texp.main(["--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    for word in ("gpjax", "--mesh-devices", "--pool", "--gp-f32",
+                 "--gp-nm-iters", "ROADMAP.md", "Nelder-Mead"):
+        assert word in text, word

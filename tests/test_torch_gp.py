@@ -127,12 +127,13 @@ def _assert_same_nonfinite(got, want):
 
 @pytest.mark.parametrize("near_singular", [False, True])
 def test_cholesky_lanes(near_singular):
-    """Against the JAX function run op by op, NaN and +-inf sit at the same
-    places. Against the jitted one the non-finite places are the same, but
-    an entry divided by an exactly-zero pivot may be NaN in one and inf in
-    the other: whether its numerator rounds to exactly zero depends on the
-    FMAs XLA forms when it fuses the column update. Values are held against
-    the jitted function only for candidates whose pivots are all sound."""
+    """The port sums each column's update as the jitted JAX function does
+    (a fused multiply-add after another): NaN and +-inf sit at the same
+    places. Against the JAX function run op by op (no fused multiply-adds)
+    the non-finite places are the same, but an entry divided by an
+    exactly-zero pivot may be NaN in one and inf in the other. Values are
+    held against the op-by-op function only for candidates whose pivots
+    are all sound."""
     sqd, Y, theta, jit, mask = _gp_problem(2, near_singular)
     K = jlanes.k_se_log10_lanes(jnp.asarray(sqd), jnp.asarray(theta))
     A = np.asarray(jlanes.masked_gram_lanes(K, jnp.asarray(mask), jnp.asarray(jit)))
@@ -143,9 +144,9 @@ def test_cholesky_lanes(near_singular):
     eager = np.asarray(jlanes.cholesky_lanes(jnp.asarray(A)))
     if near_singular:
         assert np.isnan(eager).any(), "the case must include failed pivots"
-    _assert_same_nonfinite(got, eager)
     jitted = np.asarray(_j_chol(jnp.asarray(A)))
-    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(jitted))
+    _assert_same_nonfinite(got, jitted)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(eager))
     # values where the factorisation is well away from breakdown: next to
     # a pivot that is rounding noise, any reordering changes O(1) digits
     piv = np.abs(np.einsum("iib->ib", eager))
@@ -153,7 +154,7 @@ def test_cholesky_lanes(near_singular):
     assert sound.all() or near_singular
     # norm-wise: an entry formed by cancellation carries rounding relative
     # to its column, not to itself
-    ref = jitted[..., sound]
+    ref = eager[..., sound]
     np.testing.assert_allclose(got[..., sound], ref, rtol=RTOL,
                                atol=RTOL * np.abs(ref).max())
 

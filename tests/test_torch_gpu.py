@@ -2,7 +2,11 @@
 card, for every field it has: Burgers and FHN-PDE (one thread per cell),
 and the seven ODE fields (one thread per slice); the latency probe, the
 refusal of a tableau the kernels are not compiled for, and each instance's
-registers. Run on a machine with one:
+registers; and the nnGP's Nelder-Mead search as CUDA graphs: its replay
+bitwise the eager search and the full 200-iteration loop, a capture that
+reads back raising, the lane-major sums as FMAs, bitwise the CPU's, and a
+candidate's NLL independent of the lanes beside it. Run on a machine with
+one:
 ``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
 Without a card every test here skips.
 
@@ -274,3 +278,91 @@ def test_kernel_instances_do_not_spill(name):
         assert attrs["local_bytes"] == (
             40 if name in ("DblPend", "ThomasLabyrinth") else 0), attrs
         assert attrs["blocks_per_sm"] >= 1, attrs
+
+
+# --- the nnGP's Nelder-Mead search as CUDA graphs ---
+
+
+def _nm_problem(n, m, dev, seed=0):
+    """A search's inputs: m neighbours of n coordinates (near-duplicate
+    rows included), their defects and the starts the model draws."""
+    from nngparareal_torch.models import NNGParareal
+
+    rng = np.random.default_rng(seed)
+    mdl = NNGParareal(n=n, N=8, nn=m, seed=seed)
+    x = rng.standard_normal((m, n)) * 0.05
+    x[1] = x[0] + 1e-9
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    X = as_t(x)
+    sqd = ((X[:, None] - X[None]) ** 2).sum(-1)
+    ym = as_t(rng.standard_normal((m, n)) * 1e-3)
+    mask = torch.ones(m, dtype=torch.float64, device=dev)
+    theta0 = as_t(mdl.sweep_aux(0, 8)[0])
+    return mdl, sqd, ym, mask, theta0
+
+
+@pytest.mark.parametrize("n,m", [(2, 15), (3, 14), (4, 15), (128, 18)])
+def test_nm_graph_replay_is_bitwise_the_eager_search(n, m):
+    """The replayed graphs, the same search with eager launches and the
+    full 200-iteration loop give bitwise the same thetas and scores."""
+    from nngparareal_torch.models.nngp import _nm_objective
+    from nngparareal_torch.ops.optim import nelder_mead_fixed
+
+    dev = _card()
+    mdl, sqd, ym, mask, theta0 = _nm_problem(n, m, dev)
+    th_g, fv_g = mdl._nm_search(sqd, ym, mask, theta0, graphed=True)
+    assert mdl.nm_stats["replays"] > 0
+    th_e, fv_e = mdl._nm_search(sqd, ym, mask, theta0, graphed=False)
+    data = (sqd, ym.repeat_interleave(mdl.per, 1), mask,
+            mdl._task_jitters(sqd.dtype, dev))
+    th_f, fv_f = nelder_mead_fixed(lambda p: _nm_objective(p, *data),
+                                   theta0, iters=200, fatol=mdl.fatol,
+                                   xatol=mdl.xatol, check_every=0)
+    for a, b in ((th_g, th_e), (fv_g, fv_e), (th_g, th_f), (fv_g, fv_f)):
+        assert torch.equal(a, b)
+    # a second search reuses the captured graphs
+    mdl._nm_search(sqd, ym, mask, theta0.flip(0), graphed=True)
+    assert len(mdl._graphs) == 1
+
+
+def test_lane_sums_on_card_are_fmas_and_lane_independent():
+    """addcmul is a fused multiply-add on the card (bitwise the CPU's, which
+    is one too), and a candidate's NLL does not depend on the lanes beside
+    it."""
+    from nngparareal_torch.ops import gp_lanes
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.standard_normal(4096) for _ in range(3))
+    cpu = torch.addcmul(*(torch.as_tensor(v) for v in (c, a, b)))
+    card = torch.addcmul(*(torch.as_tensor(v, device=dev)
+                           for v in (c, a, b)))
+    assert torch.equal(card.cpu(), cpu)
+    mdl, sqd, ym, mask, theta0 = _nm_problem(3, 15, dev)
+    B = theta0.shape[0]
+    jit = mdl._task_jitters(sqd.dtype, dev)
+    y = ym.repeat_interleave(mdl.per, 1)[:, None, :]
+    batch = gp_lanes.nll_lanes(sqd, y, theta0, jit, mask)
+    alone = torch.cat([gp_lanes.nll_lanes(sqd, y[:, :, i:i + 1],
+                                          theta0[i:i + 1], jit[i:i + 1],
+                                          mask) for i in range(B)], dim=1)
+    assert torch.equal(batch, alone)
+
+
+def test_nm_graph_capture_that_reads_back_raises():
+    """An objective that reads a value back cannot be captured: the search
+    raises instead of running eagerly. (Last in the file: a failed capture
+    may leave the card's stream unusable for the tests after it.)"""
+    from nngparareal_torch.ops.optim import NelderMeadGraphs
+
+    dev = _card()
+    x0 = torch.zeros((4, 2), dtype=torch.float64, device=dev)
+
+    def obj(pts, shift):
+        return ((pts - shift) ** 2).sum(-1) * float(shift.sum())
+
+    shift = torch.ones(2, dtype=torch.float64, device=dev)
+    nmg = NelderMeadGraphs(obj, (shift,), 4, 2, iters=16, fatol=1e-3,
+                           xatol=1e-3)
+    with pytest.raises(RuntimeError):
+        nmg.run(x0, shift)

@@ -33,8 +33,8 @@ eps=5e-7:
   tests/test_parity_slow.py allows the JAX package (its CPU value is 13),
   in the method's spread at the rounding level, which the chip run's
   range takes in.
-* The refusals: an nnGP that names no search (the JAX default, Nelder-
-  Mead, is not ported), ``gpjax``, ``pool=`` and ``mesh=``.
+* The refusals (``gpjax``, ``pool=`` and ``mesh=``), and the nnGP that
+  names no search: it runs Nelder-Mead, the JAX default.
 
 The helpers here also serve the other Table-2 files
 (tests/test_torch_table2_*.py).
@@ -79,11 +79,13 @@ ODE_NAMES = {"FHNODE": "FHN_ODE"}
 N32 = ("Hopf", "ThomasLabyrinth")  # systems whose Config needs N (32 here)
 
 
-def jax_run(name, model, edit=None, nudge=0.0, sign_seed=0, **kw):
+def jax_run(name, model, edit=None, nudge=0.0, sign_seed=0, search=GRID,
+            **kw):
     """The JAX package's run of one Table-2 system, with its config
     changed by ``edit`` where a test cuts it, and u0 moved by ``nudge``
     for the control (each coordinate up or down, by a draw of
-    ``sign_seed``)."""
+    ``sign_seed``); the nnGP with the search ``search`` names (``{}``:
+    the default, Nelder-Mead)."""
     ode = getattr(jt, name)(normalization="-11")
     cfg = jt.Config(ode, N=32 if name in N32 else None).get()
     if edit:
@@ -96,15 +98,17 @@ def jax_run(name, model, edit=None, nudge=0.0, sign_seed=0, **kw):
         signs = np.random.default_rng(sign_seed).choice([-1.0, 1.0],
                                                         p.u0.shape)
         p.u0 = p.u0 + nudge * signs
-    mkw = dict(nn=NN[name], **GRID) if model == "nngp" else {}
+    mkw = dict(nn=NN[name], **search) if model == "nngp" else {}
     return p.run(model=model, keep_history=True, measure_serial_fine=False,
                  **mkw, **kw)
 
 
-def port_run(name, edit=None, results_dir=None, models=MODELS):
+def port_run(name, edit=None, results_dir=None, models=MODELS,
+             search=GRID):
     """The port's run_table2 for one system (both models unless
-    ``models`` says otherwise); returns its row and the Parareal outputs
-    of its runs (with their histories), by model."""
+    ``models`` says otherwise; ``search`` as its ``nngp_kw``, ``{}`` for
+    none); returns its row and the Parareal outputs of its runs (with
+    their histories), by model."""
     outs = []
     run = tdriver.Parareal.run
 
@@ -126,19 +130,20 @@ def port_run(name, edit=None, results_dir=None, models=MODELS):
         rows = texp.run_table2(
             EPS, models=models, results_dir=results_dir,
             systems=[ODE_NAMES.get(name, name)], device="cpu",
-            nngp_kw=GRID)
+            nngp_kw=search or None)
     assert len(rows) == 1 and len(outs) == len(models)
     return rows[0], dict(zip(models, outs))
 
 
-def runs_of(name, edit=None, controls=True):
-    """The port and JAX, and JAX's control where ``controls``, for both
-    models."""
-    runs = {"port": port_run(name, edit)}
-    for model in MODELS:
-        runs[model] = jax_run(name, model, edit)
+def runs_of(name, edit=None, controls=True, models=MODELS, search=GRID):
+    """The port and JAX, and JAX's control where ``controls``, for each of
+    ``models``, the nnGP with ``search``."""
+    runs = {"port": port_run(name, edit, models=models, search=search)}
+    for model in models:
+        runs[model] = jax_run(name, model, edit, search=search)
         if controls:
-            runs[model + "_control"] = jax_run(name, model, edit, NUDGE)
+            runs[model + "_control"] = jax_run(name, model, edit, NUDGE,
+                                               search=search)
     return runs
 
 
@@ -152,13 +157,13 @@ def _agree(a, b):
     return n
 
 
-def check_row(row, name, N):
+def check_row(row, name, N, models=MODELS):
     """The row of one system: its name (Hopf's with its N), tolerance,
     neighbour count and one summary per model."""
     assert row["system"] == (f"{name}_{N}" if name == "Hopf"
                              else ODE_NAMES.get(name, name))
     assert row["epsilon"] == EPS and row["nn"] == NN[name]
-    assert [r["name"] for r in row["runs"]] == list(MODELS)
+    assert [r["name"] for r in row["runs"]] == list(models)
 
 
 def check_against_jax(runs, model, k_oracle=None, agree=None):
@@ -167,7 +172,7 @@ def check_against_jax(runs, model, k_oracle=None, agree=None):
     JAX's for exactly ``agree`` leading entries."""
     row, outs = runs["port"]
     ot, oj = outs[model], runs[model]
-    summary = row["runs"][MODELS.index(model)]
+    summary, = [r for r in row["runs"] if r["name"] == model]
     assert ot["converged"] and oj["converged"]
     assert summary["k"] == ot["k"] == oj["k"]
     if k_oracle is not None:
@@ -281,38 +286,71 @@ def test_rossler_nngp_k_under_the_control(sign_seed, k):
     assert out["converged"] and out["k"] == k
 
 
-# --- refusals ---
+# --- the default search, and the refusals ---
 
 
 def test_nngp_without_a_search_is_refused():
-    """The JAX default search, Nelder-Mead, is not ported: naming none is
-    refused instead of running the grid search under the default."""
-    with pytest.raises(NotImplementedError, match="optimizer='nm'"):
-        NNGParareal(n=2, N=4, nn=15)
+    """Naming no search runs the JAX default, Nelder-Mead, with the JAX
+    package's settings (fatol, xatol, restarts, iterations, neighbour
+    count, seed); no call is refused for it any more."""
+    want = jt.models.NNGParareal(n=2, N=4)
+    got = NNGParareal(n=2, N=4)
+    for key in ("optimizer", "fatol", "xatol", "n_restarts", "nm_max_iters",
+                "nn", "seed", "B"):
+        assert getattr(got, key) == getattr(want, key), key
+    assert got.optimizer == "nm" and got.B == 2 * 9
     ode = nt.FHNODE(normalization="-11", device="cpu")
     s = nt.RKSolver(ode.get_vector_field(), 4, 10, G="RK2", F="RK4",
                     device="cpu")
     p = nt.Parareal(ode, s, [0.0, 40.0], 40, verbose=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.run(model="nngp", nn=15)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NNGParareal(n=2, N=4, nn=15, optimizer="nm")
+    mdl = p._make_model("nngp", dict(nn=15, n_restarts=2, fatol=1e-3))
+    assert (mdl.optimizer, mdl.nn, mdl.n_restarts, mdl.fatol, mdl.xatol,
+            mdl.B) == ("nm", 15, 2, 1e-3, 0.1, 2 * 9 * 2)
     assert NNGParareal(n=2, N=4, nn=15, optimizer="grid").nn == 15
 
 
+class _Reached(Exception):
+    """Raised where a stubbed run reaches the nnGP model."""
+
+
+def _stub_parareal(models):
+    """Parareal._parareal that records its model: an nnGP stops the run
+    there (_Reached), any other model returns an empty result."""
+    def run(self, model, **kw):
+        models.append(model)
+        if isinstance(model, NNGParareal):
+            raise _Reached
+        return {"k": 1, "converged": True, "conv_int": [], "err": None,
+                "timings": {"core_t": 1.0, "F_time": 0.0, "G_time": 0.0,
+                            "mdl_tot_t": 0.0, "F_time_serial_avg": 0.0}}
+    return run
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(models=("nngp",)), "optimizer='nm'"),
-    (dict(models=("parareal", "nngp"), nngp_kw=dict(nn=3)),
-     "optimizer='nm'"),
+    (dict(models=("nngp",)), None),
+    (dict(models=("parareal", "nngp"), nngp_kw=dict(nn=3)), None),
     (dict(models=("gpjax",), nngp_kw=GRID), "ROADMAP"),
     (dict(models=MODELS, nngp_kw=GRID, pool=2), "pool"),
     (dict(models=MODELS, nngp_kw=GRID, mesh=object()), "mesh"),
 ])
 def test_run_table2_refusals(kwargs, match, monkeypatch):
-    """Each refusal comes before any model runs."""
-    calls = []
-    monkeypatch.setattr(tdriver.Parareal, "run",
-                        lambda self, **kw: calls.append(kw))
+    """Each refusal comes before any model runs. Without a search named
+    (``match`` None) nothing is refused: the first system's nnGP is built
+    with Nelder-Mead, the JAX default, and its neighbour count, or the
+    one ``nngp_kw`` gives."""
+    models = []
+    monkeypatch.setattr(tdriver.Parareal, "_parareal",
+                        _stub_parareal(models))
+    if match is None:
+        with pytest.raises(_Reached):
+            texp.run_table2(EPS, results_dir=None, device="cpu", **kwargs)
+        mdl = models[-1]
+        assert [type(m).__name__ for m in models] == (
+            ["BareParareal"] * ("parareal" in kwargs["models"])
+            + ["NNGParareal"])
+        nn = (kwargs.get("nngp_kw") or {}).get("nn", NN["FHNODE"])
+        assert (mdl.optimizer, mdl.nn, mdl.n_restarts) == ("nm", nn, 1)
+        return
     with pytest.raises(NotImplementedError, match=match):
         texp.run_table2(EPS, results_dir=None, device="cpu", **kwargs)
-    assert calls == []
+    assert models == []
