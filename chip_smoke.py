@@ -64,11 +64,32 @@ Phases, each printed as it ends with its seconds:
              simplex froze (mean, max), the graph replays, the launches by
              shape. Then one prediction's search, replayed from the graphs
              and run with eager launches: bitwise equal.
-8. serial    the runs' converged iterates against fine solves, slice by
+8. table2_gp the fifth path: experiments.run_table2 at eps=5e-7 with the
+             gpjax model (GParareal: one GP per coordinate on the whole
+             dataset, padded to a power-of-two bucket of rows; Nelder-Mead
+             at the JAX driver's Table-2 settings, fatol = xatol = 1e-6,
+             at most 400 iterations, as CUDA graphs; above 48 rows the
+             Cholesky is torch.linalg.cholesky_ex, cuSOLVER), all six
+             systems at their published configurations. Each system's K
+             must lie in TABLE2_GP, and its path must have launched its
+             own field's kernel and no other. Per system: K and conv_int,
+             the runtime and its split (fine, train, predict, coarse), the
+             bucket of each fit, the Nelder-Mead iterations per fit until
+             every simplex froze (mean, max) and the graph replays,
+             alpha_rejects and alpha_unusable, the fan-out launches by
+             shape, and the Cholesky batch (6 candidates x 9 jitters x n
+             coordinates) at the run's largest bucket with its time. Then
+             FHN once more with the grid search (gp_kw): K must be 5; its
+             conv_int is printed beside the JAX package's on the CPU.
+             Then cholesky_ex's time per batch of 162 at each bucket from
+             64 to 1024 rows, the cuSOLVER kernels it launched, and one
+             fit's search replayed from its graphs and run with eager
+             launches: bitwise equal.
+9. serial    the runs' converged iterates against fine solves, slice by
              slice (atol 2e-5, as tests/test_parareal.py holds the JAX
              package): Burgers one slice after another from u0; FHN-PDE
-             and each Table-2 run (both searches) with one kernel fan-out
-             from the converged starts.
+             and each Table-2 run (every search and model) with one kernel
+             fan-out from the converged starts.
 
 Then one JSON line describing each kernel (its launches on its path's
 run, split by shape into fine fan-outs and coarse solves,
@@ -141,6 +162,22 @@ ODE_SYSTEMS = {"fhn_ode": ("FHNODE", None), "rossler": ("Rossler", None),
 # 17, 9, 10)
 TABLE2_NM = {"FHN_ODE": (5, 5), "Rossler": (12, 13), "Hopf_32": (9, 10),
              "Brusselator": (17, 18), "Lorenz": (9, 11), "DblPend": (9, 10)}
+# system: GParareal's K range under the JAX Table-2 settings (Nelder-Mead,
+# fatol = xatol = 1e-6): the smallest range that holds the published K
+# (PARITY.md:11-16: 5, 13, 10, 20, 11, 10), the scipy oracle's
+# (PARITY.md:262-267: 5, 12, 10, 19, 11, 10) and the CPU grid run's
+# (results/table2_cpu_gpgrid.json: 5, 12, 10, 21, 10, 10)
+TABLE2_GP = {"FHN_ODE": (5, 5), "Rossler": (12, 13), "Hopf_32": (10, 10),
+             "Brusselator": (19, 21), "Lorenz": (10, 11),
+             "DblPend": (10, 10)}
+# FHN with GParareal's grid search: the JAX package's K and conv_int on the
+# CPU (tests/test_parareal.py:test_fhn_gparareal_grid_k5)
+GP_GRID_FHN_K = 5
+GP_GRID_FHN_CONV_INT_CPU = [1, 2, 3, 9, 40]
+# cholesky_ex timed at these buckets, on GP_CHOL_BATCH Grams (6
+# candidates x 9 jitters x 3 coordinates: a Nelder-Mead iteration's)
+GP_CHOL_BUCKETS = (64, 128, 256, 512, 1024)
+GP_CHOL_BATCH = 162
 # ThomasLabyrinth N=32, Parareal: the JAX package's K on the CPU
 # (tests/test_torch_table2.py:test_tomlab_parareal_k_of_the_jax_package)
 TOMLAB_K = 30
@@ -1075,6 +1112,191 @@ def graph_vs_eager(state, p, out):
             "eager_ms_per_iteration": 1e3 * eager_s / max(run_eager, 1)}
 
 
+def phase_table2_gp(state):
+    """Table 2 with GParareal (gpjax) at the JAX driver's settings, each
+    system's launches counted alone; then FHN with the grid search, the
+    Cholesky timings and the graph check."""
+    import torch
+    from nngparareal_torch import experiments
+    from nngparareal_torch.driver import Parareal
+
+    dev = state["device"]
+    per_system = experiments._run_table2_system
+    shapes = []  # each run's launches by shape, in order
+    path = ["table2_gp"]
+
+    def counted(*args, **kwargs):
+        zero_counts()
+        row = per_system(*args, **kwargs)
+        torch.cuda.synchronize()
+        field = TABLE2[row["system"]][0]
+        read_counts(state, field, path[0])
+        shapes.append(record_launches(state, field, path[0])[1])
+        return row
+
+    kept = []
+    run = keep_runs(kept)
+    experiments._run_table2_system = counted
+    try:
+        rows = experiments.run_table2(TABLE2_EPS, models=("gpjax",),
+                                      results_dir=None, device=dev)
+        path[0] = "table2_gp_grid"
+        grid_rows = experiments.run_table2(
+            TABLE2_EPS, models=("gpjax",), results_dir=None, device=dev,
+            systems=["FHN_ODE"], gp_kw=dict(optimizer="grid"))
+    finally:
+        experiments._run_table2_system = per_system
+        Parareal.run = run
+    if [r["system"] for r in rows] != list(TABLE2):
+        raise PhaseError(f"table2_gp ran {[r['system'] for r in rows]}")
+    info = {}
+    failures = []
+    for row, (p, out), shape in zip(rows, kept, shapes):
+        system = row["system"]
+        check_iterates(f"{system} GP", p, out)
+        state["table2"].append((f"{system} GP", p, out))
+        info[system] = gp_run_info(state, p, out, shape)
+        lo, hi = TABLE2_GP[system]
+        if not out["converged"] or not lo <= out["k"] <= hi:
+            failures.append(f"{system}: converged={out['converged']} "
+                            f"K={out['k']}, expected {lo}-{hi}")
+    p, out = kept[-1]
+    check_iterates("FHN_ODE GP (grid)", p, out)
+    state["table2"].append(("FHN_ODE GP (grid)", p, out))
+    grid = gp_run_info(state, p, out, shapes[-1])
+    grid["conv_int_jax_cpu"] = GP_GRID_FHN_CONV_INT_CPU
+    info["FHN_ODE_grid"] = grid
+    if not out["converged"] or out["k"] != GP_GRID_FHN_K:
+        failures.append(f"FHN_ODE grid: converged={out['converged']} "
+                        f"K={out['k']}, expected {GP_GRID_FHN_K}")
+    if [r["system"] for r in grid_rows] != ["FHN_ODE"]:
+        raise PhaseError(f"table2_gp grid ran {grid_rows}")
+    if failures:
+        raise PhaseError("table2_gp K outside its limits: "
+                         + "; ".join(failures))
+    info["cholesky_by_bucket"] = cholesky_by_bucket(dev)
+    big = max(kept[:-1], key=lambda r: max(r[1]["timings"]["gp_buckets"]))
+    info["graph_vs_eager"] = gp_graph_vs_eager(dev, *big)
+    return info
+
+
+def _gp_grams(X, T, dev):
+    """6T masked SE Grams of the rows X (B, n), thetas spread over the
+    search's range, jitter 1e-12: the shape of a Nelder-Mead iteration's
+    batch (6 candidates of T tasks)."""
+    import torch
+    from nngparareal_torch.ops import gp as gpops
+
+    sqd = gpops.pairwise_sq_dists(X, X)
+    sx = torch.logspace(-1.0, 0.5, 6 * T, dtype=torch.float64, device=dev)
+    th = torch.stack([sx, torch.full_like(sx, 1e-2)], dim=1)
+    mask = torch.ones(X.shape[0], dtype=torch.float64, device=dev)
+    jit = torch.full((6 * T,), -12.0, dtype=torch.float64, device=dev)
+    return gpops._masked_gram(gpops.k_se_linear(sqd, th), mask, jit)
+
+
+def gp_run_info(state, p, out, shapes):
+    """A GParareal run's numbers, with its Cholesky batch at its largest
+    bucket (the run's newest dataset rows, topped up with uniform points
+    in their range where it has fewer) and that batch's time."""
+    import numpy as np
+    import torch
+    from nngparareal_torch.ops import gp as gpops
+
+    tm = out["timings"]
+    its = tm.get("nm_iterations") or [0]
+    B = max(tm["gp_buckets"])
+    T = 9 * p.n
+    x = out["x"][-B:]
+    if x.shape[0] < B:
+        rng = np.random.default_rng(0)
+        x = np.concatenate([x, rng.uniform(x.min(0), x.max(0),
+                                           (B - x.shape[0], p.n))])
+    chol_ms = None
+    if B > gpops.SMALL_M:
+        Kj = _gp_grams(torch.as_tensor(x, device=state["device"]), T,
+                       state["device"])
+        chol_ms = _event_ms(lambda: gpops.cholesky_nan(Kj), 3)
+        del Kj
+    info = run_info(out, p.N)
+    info.update(
+        train_s=tm["mdl_train_t"], gp_buckets=tm["gp_buckets"],
+        nm_iterations_mean=float(np.mean(its)),
+        nm_iterations_max=int(max(its)),
+        nm_graph_replays=tm.get("nm_graph_replays", 0),
+        alpha_rejects=tm["alpha_rejects"],
+        alpha_unusable=tm["alpha_unusable"],
+        launches_by_shape=shapes,
+        cholesky_batch=[6 * T, B, B], cholesky_ms=chol_ms)
+    return info
+
+
+def cholesky_by_bucket(dev):
+    """cholesky_ex (through ops.gp.cholesky_nan) on GP_CHOL_BATCH Grams at
+    each bucket: ms per batch; and the card's kernels of one call at 512
+    rows (cuSOLVER's batched potrf names its kernels *batch*)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nngparareal_torch.ops import gp as gpops
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    out = {}
+    names = []
+    for B in GP_CHOL_BUCKETS:
+        X = torch.rand((B, 3), generator=g, dtype=torch.float64).to(dev)
+        Kj = _gp_grams(X, GP_CHOL_BATCH // 6, dev)
+        out[str(B)] = _event_ms(lambda: gpops.cholesky_nan(Kj), 3)
+        if B == 512:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                gpops.cholesky_nan(Kj)
+                torch.cuda.synchronize()
+            names = sorted({e.key for e in prof.key_averages()
+                            if "potrf" in e.key})
+        del Kj
+    torch.cuda.empty_cache()
+    return {"batch": GP_CHOL_BATCH, "ms_by_bucket": out,
+            "potrf_kernels": [n[:60] for n in names],
+            "batched": any("atch" in n for n in names)}
+
+
+def gp_graph_vs_eager(dev, p, out, iters=48):
+    """One GParareal Nelder-Mead fit on a run's valid dataset rows (the
+    newest, at most its largest bucket), replayed from its graphs and run
+    with eager launches (``iters`` iterations at most): bitwise equal.
+    Each timed by the host clock between synchronises, per iteration
+    run."""
+    import numpy as np
+    import torch
+    from nngparareal_torch.models import GParareal
+
+    B = max(out["timings"]["gp_buckets"])
+    X = torch.as_tensor(out["x"][-B:], device=dev)
+    D = torch.as_tensor(out["D"][-B:], device=dev)
+    valid = torch.ones(X.shape[0], dtype=torch.float64, device=dev)
+    mdl = GParareal(p.n, p.N, fatol=1e-6, xatol=1e-6, nm_max_iters=iters)
+    x0 = torch.as_tensor(np.repeat(mdl.thetas, 9, axis=0), device=dev)
+    mdl._fit_warm(X, D, valid, x0, graphed=True)  # captures the graphs
+    timed = {}
+    for graphed in (True, False):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        res = mdl._fit_warm(X, D, valid, x0, graphed=graphed)
+        torch.cuda.synchronize()
+        timed[graphed] = (res, time.perf_counter() - tic)
+    (got, graph_s), (want, eager_s) = timed[True], timed[False]
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    if not same:
+        raise PhaseError("GParareal's Nelder-Mead graph replay differs from "
+                         "the eager run")
+    run_graph = next(iter(mdl._graphs.values())).last["run"]
+    run_eager = mdl.nm_stats["iterations"][-1]
+    return {"bitwise": same, "bucket": int(X.shape[0]),
+            "tasks": 9 * p.n, "iterations_graph": run_graph,
+            "iterations_eager": run_eager,
+            "graph_ms_per_iteration": 1e3 * graph_s / max(run_graph, 1),
+            "eager_ms_per_iteration": 1e3 * eager_s / max(run_eager, 1)}
+
+
 def phase_serial(state):
     import numpy as np
     import torch
@@ -1176,6 +1398,7 @@ def main():
         phases.run("fhn_pde", phase_fhn_pde, state)
         phases.run("table2", phase_table2, state)
         phases.run("table2_nm", phase_table2_nm, state)
+        phases.run("table2_gp", phase_table2_gp, state)
         phases.run("serial", phase_serial, state)
     except Exception as exc:  # report the phase, exit nonzero
         signal.alarm(0)

@@ -1,6 +1,6 @@
 """nngparareal_torch: the PyTorch/CUDA port of nngparareal_tpu.
 
-Parareal and nnGParareal for NVIDIA GPUs. Plain tensor code is PyTorch in
+Parareal, GParareal and nnGParareal for NVIDIA GPUs. Plain tensor code is PyTorch in
 float64; the fine fan-out, the JAX package's one Pallas TPU kernel, is a
 hand-written CUDA kernel (csrc/rk_fanout.cu) built with nvcc at first use
 and bound with ctypes. The package imports neither jax nor nngparareal_tpu.

@@ -31,17 +31,25 @@ import numpy as np
 import torch
 
 from nngparareal_torch.convert import from_jax_checkpoint, load_checkpoint
-from nngparareal_torch.models import BareParareal, Dataset, NNGParareal
+from nngparareal_torch.models import (
+    BareParareal, Dataset, GParareal, GPScipy, NNGParareal,
+)
 from nngparareal_torch.models.base import ModelBase
 from nngparareal_torch.solver import SolverAbstr
 from nngparareal_torch.systems.base import ODE
 from nngparareal_torch.utils.device import resolve_device
 from nngparareal_torch.utils.timing import wall_timed
 
-# run() keywords that configure the model; the rest go to the loop
-_MODEL_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol", "nm_max_iters",
-               "optimizer", "posterior", "grid_refine", "grid_walk",
-               "grid_polish", "score_dtype", "strategy")
+# run() keywords that configure each model; the union is taken out of
+# run()'s keywords, each model gets its own, and the rest go to the loop
+_NNGP_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol", "nm_max_iters",
+              "optimizer", "posterior", "grid_refine", "grid_walk",
+              "grid_polish", "score_dtype", "strategy")
+_GP_KEYS = ("theta", "seed", "fatol", "xatol", "nm_max_iters", "optimizer",
+            "score_dtype", "grid_chunk", "grid_task_chunk", "grid_logs",
+            "alpha_res_tol", "fit_rows_cap", "score_rows_cap")
+_GP_SCIPY_KEYS = ("theta", "seed", "fatol", "xatol")
+_MODEL_KEYS = tuple(dict.fromkeys(_NNGP_KEYS + _GP_KEYS))
 
 
 class Parareal:
@@ -93,10 +101,19 @@ class Parareal:
         if isinstance(model, ModelBase):
             return model
         key = str(model).lower()
+
+        def own(keys):
+            # the JAX package drops the keywords a model does not take
+            return {k: v for k, v in kw.items() if k in keys}
+
         if key == "parareal":
             return BareParareal(n=self.n, N=self.N)
         if key in ("nngp", "nngparareal"):
-            return NNGParareal(n=self.n, N=self.N, **kw)
+            return NNGParareal(n=self.n, N=self.N, **own(_NNGP_KEYS))
+        if key in ("gpjax", "gp", "gparareal"):
+            return GParareal(n=self.n, N=self.N, **own(_GP_KEYS))
+        if key in ("gpjax_scipy", "gp_oracle"):
+            return GPScipy(n=self.n, N=self.N, **own(_GP_SCIPY_KEYS))
         raise NotImplementedError(
             f"model {model!r} is not ported yet (ROADMAP.md, modules still "
             "to port)"

@@ -26,13 +26,18 @@ takes ``nngp_kw`` as every other driver does. Each model runs in turn on
 the card (``device=None``) or wherever ``device`` says; ``results_dir``
 receives the pickled summary rows.
 
-Not ported yet (ROADMAP.md), each refused before any model runs: the
-GParareal model ``gpjax`` that ``MODELS_DEFAULT`` names (and ``gp_kw``,
-its settings), ``mesh=`` (multi-GPU slice sharding) and ``run_table2``'s
-process ``pool=``.
+GParareal (``gpjax``, which ``MODELS_DEFAULT`` names) runs with the JAX
+package's settings for each driver (``run_hopf``: theta [1, 1] and fatol =
+xatol = 1e-6; ``run_tomlab``: 1e-1; ``run_table2``: 1e-6), overridden by
+``gp_kw`` where the JAX driver takes it.
+
+Not ported yet (ROADMAP.md), each refused before any model runs:
+``mesh=`` (multi-GPU slice sharding) and ``run_table2``'s process
+``pool=``.
 """
 
 import numpy as np
+import torch
 
 from nngparareal_torch.driver import Parareal
 from nngparareal_torch.reporting import calc_speedup, est_serial
@@ -45,17 +50,14 @@ from nngparareal_torch.systems.configs import Config
 from nngparareal_torch.utils.io import store_pickle
 
 MODELS_DEFAULT = ("parareal", "gpjax", "nngp")
-_PORTED_MODELS = ("parareal", "nngp")
+_PORTED_MODELS = ("parareal", "gpjax", "nngp")
 _TODO = "is not ported yet (ROADMAP.md, modules still to port)"
 
 
-def _refuse(mesh=None, gp_kw=None, pool=None):
+def _refuse(mesh=None, pool=None):
     """The arguments of parts not ported yet, refused before any run."""
     if mesh is not None:
         raise NotImplementedError(f"mesh= (multi-GPU slice sharding) {_TODO}")
-    if gp_kw is not None:
-        raise NotImplementedError(f"gp_kw (the GParareal model's settings) "
-                                  f"{_TODO}")
     if pool:
         raise NotImplementedError(f"run_table2's pool= (a process per "
                                   f"system) {_TODO}")
@@ -109,7 +111,7 @@ def run_hopf(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
     """Hopf scalability: the Config's fine step count x ``fine_mult``,
     fine solves paged in Nf/25 chunks (the plain path; the kernel takes
     every step in one launch)."""
-    _refuse(mesh, gp_kw)
+    _refuse(mesh)
     _check_models(models)
     ode = Hopf(normalization="-11", device=device)
     cfg = Config(ode, N=N).get()
@@ -121,6 +123,8 @@ def run_hopf(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
     )
     p = Parareal(ode, solver, cfg["tspan"], N, epsilon=5e-7, device=device)
     model_kwargs = {
+        "gpjax": dict(theta=[1, 1], fatol=1e-6, xatol=1e-6,
+                      **(gp_kw or {})),
         "nngp": dict(fatol=1e-1, xatol=1e-1, nn=15, n_restarts=2, seed=45),
     }
     return _run_models(p, model_kwargs, models, results_dir, f"hopf_{N}",
@@ -131,7 +135,7 @@ def run_tomlab(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
                store_int=False, nngp_kw=None, gp_kw=None, device=None):
     """Thomas labyrinth scalability (T and the step counts per N from its
     Config)."""
-    _refuse(mesh, gp_kw)
+    _refuse(mesh)
     _check_models(models)
     ode = ThomasLabyrinth(normalization="-11", device=device)
     cfg = Config(ode, N=N).get()
@@ -141,6 +145,7 @@ def run_tomlab(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
     )
     p = Parareal(ode, solver, cfg["tspan"], N, epsilon=5e-7, device=device)
     model_kwargs = {
+        "gpjax": dict(fatol=1e-1, xatol=1e-1, **(gp_kw or {})),
         "nngp": dict(nn=18, n_restarts=1, fatol=1e-3, xatol=1e-3, seed=45),
     }
     return _run_models(p, model_kwargs, models, results_dir, f"tomlab_{N}",
@@ -211,7 +216,8 @@ _TABLE2_SYSTEMS = [
 ]
 
 
-def _run_table2_system(idx, epsilon, models, device=None, nngp_kw=None):
+def _run_table2_system(idx, epsilon, models, device=None, nngp_kw=None,
+                       gp_kw=None):
     """One whole-system Table-2 run at its published configuration (Hopf
     at N=32); returns {system, epsilon, nn, runs}."""
     ctor, nn7, nn9 = _TABLE2_SYSTEMS[idx]
@@ -225,7 +231,10 @@ def _run_table2_system(idx, epsilon, models, device=None, nngp_kw=None):
     )
     p = Parareal(ode, solver, cfg["tspan"], cfg["N"], epsilon=epsilon,
                  device=device)
-    model_kwargs = {"nngp": dict(nn=nn)}
+    model_kwargs = {
+        "nngp": dict(nn=nn),
+        "gpjax": dict(fatol=1e-6, xatol=1e-6, **(gp_kw or {})),
+    }
     sys_rows = _run_models(p, model_kwargs, models, None, "",
                            nngp_kw=nngp_kw)
     return {"system": ode.name, "epsilon": epsilon, "nn": nn,
@@ -241,8 +250,9 @@ def run_table2(epsilon=5e-7, models=MODELS_DEFAULT, results_dir="results",
     ``systems``: optional subset of system names (e.g. ["FHN_ODE"]).
     ``nngp_kw``: the nnGP's overrides (the JAX ``run_table2`` has none;
     its nnGP always runs Nelder-Mead, as the port's does without them).
-    ``mesh``, ``pool`` and ``gp_kw`` are not ported and raise."""
-    _refuse(mesh, gp_kw, pool)
+    ``gp_kw``: GParareal's, over fatol = xatol = 1e-6.
+    ``mesh`` and ``pool`` are not ported and raise."""
+    _refuse(mesh, pool=pool)
     _check_models(models)
     sel = [i for i, (ctor, _, _) in enumerate(_TABLE2_SYSTEMS)
            if systems is None
@@ -250,7 +260,8 @@ def run_table2(epsilon=5e-7, models=MODELS_DEFAULT, results_dir="results",
     rows = []
     for i in sel:
         rows.append(_run_table2_system(i, epsilon, tuple(models),
-                                       device=device, nngp_kw=nngp_kw))
+                                       device=device, nngp_kw=nngp_kw,
+                                       gp_kw=gp_kw))
         if results_dir:
             store_pickle(rows, f"table2_eps{epsilon:g}.pkl", results_dir)
     return rows
@@ -282,10 +293,9 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(
         description="nngparareal_torch experiments (the PyTorch/CUDA port). "
-                    "The default --models names gpjax (GParareal), which is "
-                    "not ported yet and is refused: pass --models parareal "
-                    "nngp. --mesh-devices, --pool, --gp-f32 and "
-                    "--gp-nm-iters are refused too (ROADMAP.md).")
+                    "The default --models runs parareal, gpjax (GParareal) "
+                    "and nngp, as the JAX package's does. --mesh-devices and "
+                    "--pool are not ported yet and are refused (ROADMAP.md).")
     ap.add_argument("experiment", choices=[
         "hopf", "tomlab", "burgers", "fhn_pde", "table2", "burgers_m",
     ])
@@ -294,7 +304,7 @@ def main(argv=None):
     ap.add_argument("--T", type=float, default=5.9)
     ap.add_argument("--epsilon", type=float, default=5e-7)
     ap.add_argument("--models", nargs="+", default=list(MODELS_DEFAULT),
-                    help="default: parareal gpjax nngp (gpjax is refused)")
+                    help="default: parareal gpjax nngp")
     ap.add_argument("--results-dir", default="results")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -304,9 +314,11 @@ def main(argv=None):
                     help="nnGP grid hyperopt (default: Nelder-Mead, the "
                          "reference's search)")
     ap.add_argument("--gp-f32", action="store_true",
-                    help="not ported (GParareal): refused")
+                    help="GParareal scores its candidates in f32 (the "
+                         "posterior fit stays f64)")
     ap.add_argument("--gp-nm-iters", type=int, default=None,
-                    help="not ported (GParareal): refused")
+                    help="GParareal's Nelder-Mead iterations at most "
+                         "(default 400)")
     ap.add_argument("--pool", type=int, default=None,
                     help="not ported: refused")
     ap.add_argument("--systems", nargs="+", default=None,
@@ -314,19 +326,23 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     for flag, val in (("--mesh-devices", args.mesh_devices),
-                      ("--pool", args.pool), ("--gp-f32", args.gp_f32),
-                      ("--gp-nm-iters", args.gp_nm_iters)):
+                      ("--pool", args.pool)):
         if val:
             raise NotImplementedError(f"{flag} {_TODO}")
     models = tuple(args.models)
     nngp_kw = dict(optimizer="grid") if args.nngp_grid else None
+    gp_kw = None
+    if args.gp_f32:
+        gp_kw = dict(score_dtype=torch.float32)
+    if args.gp_nm_iters:
+        gp_kw = dict(gp_kw or {}, nm_max_iters=args.gp_nm_iters)
     dev = args.device
     if args.experiment == "hopf":
         rows = run_hopf(args.N or 32, models, args.results_dir,
-                        nngp_kw=nngp_kw, device=dev)
+                        nngp_kw=nngp_kw, gp_kw=gp_kw, device=dev)
     elif args.experiment == "tomlab":
         rows = run_tomlab(args.N or 32, models, args.results_dir,
-                          nngp_kw=nngp_kw, device=dev)
+                          nngp_kw=nngp_kw, gp_kw=gp_kw, device=dev)
     elif args.experiment == "burgers":
         rows = run_burgers(args.T, args.N or 128, models, args.results_dir,
                            nngp_kw=nngp_kw, device=dev)
@@ -335,7 +351,8 @@ def main(argv=None):
                            nngp_kw=nngp_kw, device=dev)
     elif args.experiment == "table2":
         rows = run_table2(args.epsilon, models, args.results_dir,
-                          systems=args.systems, device=dev, nngp_kw=nngp_kw)
+                          systems=args.systems, device=dev, nngp_kw=nngp_kw,
+                          gp_kw=gp_kw)
     else:
         rows = run_burgers_across_m(T=args.T, results_dir=args.results_dir,
                                     device=dev)

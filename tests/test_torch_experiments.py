@@ -4,15 +4,19 @@ and the command line ``main``.
 
 * Each driver builds the JAX package's run: both packages' drivers stop
   at ``_run_models``, and the Parareal, its solver (N, tspan, Ng, Nf,
-  thresh, G, F, eps, u0) and the model keywords are equal.
+  thresh, G, F, eps, u0) and the model keywords, GParareal's among them,
+  are equal.
+* The default ``models`` (parareal, gpjax, nngp) and ``gp_kw`` reach
+  GParareal with the JAX driver's settings; ``mesh=`` is refused before
+  any model runs, naming ROADMAP.md.
 * ``run_burgers_across_m`` threads each seed into the nnGP: the first
   sweep's Nelder-Mead starts are JAX's for every seed, differ between
   seeds, and repeat for a repeated seed.
 * ``main`` dispatches each experiment with JAX's arguments (the nnGP with
-  Nelder-Mead, or the grid with ``--nngp-grid``) and refuses, before any
-  model runs and naming ROADMAP.md: the default ``--models`` (it names
-  ``gpjax``), ``--mesh-devices``, ``--pool``, ``--gp-f32`` and
-  ``--gp-nm-iters``; ``--help`` says so.
+  Nelder-Mead, or the grid with ``--nngp-grid``; the default ``--models``
+  with GParareal; ``--gp-f32`` and ``--gp-nm-iters`` into GParareal's
+  settings) and refuses, before any model runs and naming ROADMAP.md,
+  ``--mesh-devices`` and ``--pool``; ``--help`` says so.
 
 No model runs here: ``Parareal._parareal`` is stubbed where a call would
 run one. tests/test_torch_experiments_runs.py runs the drivers.
@@ -20,6 +24,7 @@ run one. tests/test_torch_experiments_runs.py runs the drivers.
 
 import numpy as np
 import pytest
+import torch
 
 from nngparareal_tpu import driver as jdriver
 from nngparareal_tpu import experiments as jexp
@@ -69,31 +74,53 @@ def test_driver_builds_the_jax_run(fn, kw, monkeypatch):
     j, t = seen["jax"], seen["torch"]
     pj, pt = j.pop("p"), t.pop("p")
     j["common"].pop("mesh")  # multi-GPU sharding is not ported
-    j["model_kwargs"].pop("gpjax", None)  # GParareal is not ported
     assert t == j
     _built(pj, pt)
+
+
+# GParareal's settings in each JAX driver (nngparareal_tpu/experiments.py:
+# run_hopf, run_tomlab, _run_table2_system; run_burgers sets none)
+JAX_GP = {"run_hopf": dict(theta0=[1.0, 1.0], fatol=1e-6, xatol=1e-6),
+          "run_tomlab": dict(theta0=[1.0, 1.0], fatol=1e-1, xatol=1e-1),
+          "run_burgers": dict(theta0=[1.0, 1.0], fatol=1e-4, xatol=1e-4),
+          "run_table2": dict(theta0=[1.0, 1.0], fatol=1e-6, xatol=1e-6)}
+
+
+def _check_gp(mdl, want, **extra):
+    assert type(mdl).__name__ == "GParareal"
+    np.testing.assert_array_equal(mdl.theta0, want["theta0"])
+    assert (mdl.fatol, mdl.xatol) == (want["fatol"], want["xatol"])
+    for key, val in extra.items():
+        assert getattr(mdl, key) == val, key
 
 
 @pytest.mark.parametrize("fn", ["run_hopf", "run_tomlab", "run_burgers",
                                 "run_table2", "run_burgers_across_m"])
 def test_driver_refusals(fn, monkeypatch):
-    """gpjax (GParareal), its gp_kw, and mesh= are refused before any
-    model runs."""
-    models = []
-    monkeypatch.setattr(tdriver.Parareal, "_parareal",
-                        lambda self, model, **kw: models.append(model))
+    """mesh= is refused before any model runs. The default models
+    (parareal, gpjax, nngp) run GParareal with the JAX driver's settings,
+    and gp_kw, where the JAX driver takes it, overrides them."""
+    runs = []
+    monkeypatch.setattr(tdriver.Parareal, "_parareal", _record_models(runs))
     pos = {"run_hopf": (32,), "run_tomlab": (32,)}.get(fn, ())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(texp, fn)(*pos, results_dir=None, device="cpu",
                           mesh=object())
-    if fn not in ("run_burgers", "run_burgers_across_m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(texp, fn)(*pos, models=("nngp",), results_dir=None,
-                              device="cpu", gp_kw=dict(theta=[1, 1]))
-    if fn != "run_burgers_across_m":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(texp, fn)(*pos, results_dir=None, device="cpu")
-    assert models == []
+    assert runs == []
+    if fn == "run_burgers_across_m":
+        return
+    sel = dict(systems=["FHN_ODE"]) if fn == "run_table2" else {}
+    getattr(texp, fn)(*pos, results_dir=None, device="cpu", **sel)
+    assert [type(m).__name__ for _, m, _ in runs] == [
+        "BareParareal", "GParareal", "NNGParareal"]
+    _check_gp(runs[1][1], JAX_GP[fn], optimizer="nm", nm_max_iters=400)
+    if fn != "run_burgers":
+        runs.clear()
+        getattr(texp, fn)(*pos, models=("gpjax",), results_dir=None,
+                          device="cpu", gp_kw=dict(optimizer="grid",
+                                                   nm_max_iters=7), **sel)
+        (_, mdl, _), = runs
+        _check_gp(mdl, JAX_GP[fn], optimizer="grid", nm_max_iters=7)
 
 
 class _Stop(Exception):
@@ -176,27 +203,51 @@ def test_main_runs_the_jax_arguments(argv, check, monkeypatch, tmp_path,
     assert "K = 2" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [
-    ["table2"],  # the default --models names gpjax
-    ["hopf", "--models", "parareal", "gpjax"],
-    ["table2", "--models", "nngp", "--mesh-devices", "2"],
-    ["table2", "--models", "nngp", "--pool", "2"],
-    ["hopf", "--models", "nngp", "--gp-f32"],
-    ["tomlab", "--models", "nngp", "--gp-nm-iters", "50"],
-])
-def test_main_refusals(argv, monkeypatch):
-    models = []
-    monkeypatch.setattr(tdriver.Parareal, "_parareal",
-                        _record_models(models))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texp.main(argv + ["--device", "cpu", "--results-dir", "unused"])
-    assert models == []
+MAIN_CASES = [
+    # the default --models: parareal, gpjax and nngp on each system
+    (["table2", "--systems", "FHN_ODE", "Lorenz"],
+     dict(n_runs=6, gp=JAX_GP["run_table2"])),
+    (["hopf", "--models", "parareal", "gpjax"],
+     dict(n_runs=2, gp=JAX_GP["run_hopf"])),
+    (["table2", "--models", "nngp", "--mesh-devices", "2"], None),
+    (["table2", "--models", "nngp", "--pool", "2"], None),
+    (["hopf", "--models", "gpjax", "--gp-f32"],
+     dict(n_runs=1, gp=JAX_GP["run_hopf"], score_dtype=torch.float32)),
+    (["tomlab", "--models", "gpjax", "--gp-nm-iters", "50"],
+     dict(n_runs=1, gp=JAX_GP["run_tomlab"], nm_max_iters=50)),
+]
+
+
+@pytest.mark.parametrize("argv,want", MAIN_CASES,
+                         ids=[f"argv{i}" for i in range(len(MAIN_CASES))])
+def test_main_refusals(argv, want, monkeypatch):
+    """--mesh-devices and --pool are refused before any model runs; the
+    default --models, gpjax, --gp-f32 and --gp-nm-iters reach GParareal
+    with the JAX driver's settings."""
+    runs = []
+    monkeypatch.setattr(tdriver.Parareal, "_parareal", _record_models(runs))
+    args = argv + ["--device", "cpu", "--results-dir", "unused"]
+    if want is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            texp.main(args)
+        assert runs == []
+        return
+    texp.main(argv + ["--device", "cpu", "--results-dir", ""])
+    assert len(runs) == want["n_runs"]
+    gps = [m for _, m, _ in runs if type(m).__name__ == "GParareal"]
+    assert gps
+    extra = {k: v for k, v in want.items() if k not in ("n_runs", "gp")}
+    for mdl in gps:
+        _check_gp(mdl, want["gp"], **extra)
 
 
 def test_main_help_names_the_refusals(capsys):
     with pytest.raises(SystemExit):
         texp.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    for word in ("gpjax", "--mesh-devices", "--pool", "--gp-f32",
-                 "--gp-nm-iters", "ROADMAP.md", "Nelder-Mead"):
+    for word in ("--mesh-devices", "--pool", "ROADMAP.md", "Nelder-Mead",
+                 "parareal, gpjax (GParareal) and nngp",
+                 "--gp-f32 GParareal scores its candidates in f32",
+                 "--gp-nm-iters GP_NM_ITERS GParareal's Nelder-Mead"):
         assert word in text, word
+    assert "gpjax is refused" not in text

@@ -241,11 +241,14 @@ def test_run_models_rows_and_refusals(tmp_path):
 
     stored = load_checkpoint(os.path.join(tmp_path, "tag.pkl"))
     assert [r["name"] for r in stored] == ["parareal", "nngp"]
-    # GParareal is not ported: refused before any model runs
-    p = _StubParareal()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texp._run_models(p, mk, texp.MODELS_DEFAULT, None, "tag")
-    assert p.calls == []
+    # MODELS_DEFAULT runs every model, GParareal (gpjax) among them, with
+    # the keywords the JAX package passes each
+    p, pj = _StubParareal(), _StubParareal()
+    rows = texp._run_models(p, mk, texp.MODELS_DEFAULT, None, "tag")
+    jexp._run_models(pj, mk, jexp.MODELS_DEFAULT, None, "tag")
+    assert [m for m, _ in p.calls] == ["parareal", "gpjax", "nngp"]
+    assert p.calls == pj.calls
+    assert [r["name"] for r in rows] == list(texp.MODELS_DEFAULT)
 
 
 SMALL = dict(d_x=4, N=16, T=4.6875, Ng=3, Nf=100, G="RK2", F="RK8")

@@ -5,7 +5,9 @@ refusal of a tableau the kernels are not compiled for, and each instance's
 registers; and the nnGP's Nelder-Mead search as CUDA graphs: its replay
 bitwise the eager search and the full 200-iteration loop, a capture that
 reads back raising, the lane-major sums as FMAs, bitwise the CPU's, and a
-candidate's NLL independent of the lanes beside it. Run on a machine with
+candidate's NLL independent of the lanes beside it; GParareal's search
+replayed bitwise its eager run, its fit against the CPU's, cuSOLVER's
+failed factor mapped to NaN, and the f32 blocked factor against f64. Run on a machine with
 one:
 ``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
 Without a card every test here skips.
@@ -347,6 +349,116 @@ def test_lane_sums_on_card_are_fmas_and_lane_independent():
                                           theta0[i:i + 1], jit[i:i + 1],
                                           mask) for i in range(B)], dim=1)
     assert torch.equal(batch, alone)
+
+
+def _gp_problem(rows, cap, dev, n=3, seed=0):
+    """A padded GParareal dataset on the card: rough targets at smooth
+    inputs, a masked hole."""
+    from nngparareal_torch.models import Dataset
+
+    rng = np.random.default_rng(seed)
+    X = np.zeros((cap, n))
+    D = np.zeros((cap, n))
+    V = np.zeros(cap)
+    X[:rows] = rng.uniform(-1, 1, (rows, n))
+    D[:rows] = rng.normal(size=(rows, n)) * 1e-3
+    V[:rows] = 1.0
+    V[3] = 0.0
+    return Dataset(*(torch.tensor(a, device=dev) for a in (X, D, V)))
+
+
+@pytest.mark.parametrize("rows,cap", [(24, 32), (100, 128), (400, 512)])
+def test_gp_search_graph_replay_is_bitwise_the_eager_search(rows, cap):
+    """GParareal's Nelder-Mead fit replayed from its graphs and run with
+    eager launches: bitwise the same winners, on both sides of the 48-row
+    switch (the column loop, and cuSOLVER's batched potrf)."""
+    from nngparareal_torch.models import GParareal
+
+    dev = _card()
+    ds = _gp_problem(rows, cap, dev)
+    mdl = GParareal(3, 40, fatol=1e-6, xatol=1e-6, nm_max_iters=64,
+                    theta=[0.3, 0.001])
+    x0 = torch.as_tensor(np.repeat(mdl.thetas, 9, axis=0), device=dev)
+    args = (ds.X, ds.D, ds.valid, x0)
+    got = mdl._fit_warm(*args, graphed=True)
+    assert mdl.nm_stats["replays"] > 0
+    want = mdl._fit_warm(*args, graphed=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.isfinite(got[2]).all()
+
+
+def test_gp_fit_on_card_matches_cpu():
+    """A whole fit on the card against the same fit on the CPU: each
+    coordinate's winning NLL within the search's fatol (cuSOLVER and
+    LAPACK round otherwise). On these well-conditioned Grams the jitters
+    1e-20..1e-12 change the NLL by less than that, so which jitter wins
+    is a rounding-level tie (measured on an H100: -19 on the card against
+    -20 on the CPU for one coordinate)."""
+    from nngparareal_torch.models import Dataset, GParareal
+
+    dev = _card()
+    ds = _gp_problem(100, 128, dev)
+    fits = []
+    for d in (ds, Dataset(ds.X.cpu(), ds.D.cpu(), ds.valid.cpu())):
+        m = GParareal(3, 40, fatol=1e-6, xatol=1e-6, theta=[0.3, 0.001])
+        m.fit(d, 1)
+        fits.append(m)
+    card, cpu = fits
+    assert np.abs(card.fvals - cpu.fvals).max() <= 1e-6
+
+
+@pytest.mark.parametrize("M", [64, 512])
+def test_cholesky_failure_is_nan_on_card(M):
+    """cholesky_ex's failure is an all-NaN factor (as JAX returns one),
+    without a read back, and the NLL is +inf; the good matrices of the
+    batch are unaffected."""
+    from nngparareal_torch.ops import gp as gpops
+
+    dev = _card()
+    rng = np.random.default_rng(M)
+    X = torch.tensor(rng.uniform(-1, 1, (M, 3)), device=dev)
+    sqd = gpops.pairwise_sq_dists(X, X)
+    th = torch.tensor([[0.3, 1.0], [0.3, 1.0]], device=dev)
+    K = gpops.k_se_linear(sqd, th)
+    K[1, M // 2, M // 2] = -1.0
+    mask = torch.ones(M, dtype=torch.float64, device=dev)
+    jit = torch.full((2,), -6.0, dtype=torch.float64, device=dev)
+    Kj = gpops._masked_gram(K, mask, jit)
+    L = gpops.cholesky_nan(Kj)
+    assert torch.isnan(L[1]).all() and torch.isfinite(L[0]).all()
+    y = torch.tensor(rng.normal(size=M), device=dev)
+    nll = gpops.gp_nll(K, y, jit, mask)
+    assert torch.isfinite(nll[0]) and nll[1] == float("inf")
+    ref = gpops.gp_nll(K[0].cpu(), y.cpu(), jit[0].cpu(), mask.cpu())
+    assert abs(float(nll[0]) - float(ref)) <= 1e-9 * abs(float(ref))
+
+
+@pytest.mark.parametrize("M", [300, 512])
+def test_f32_blocked_factor_on_card_tracks_f64(M):
+    """The blocked IEEE-f32 factorisation on the card against cuSOLVER in
+    f64 (cond 1e4: a relative error of about cond x eps32), with TF32
+    allowed by the caller: it is not used."""
+    from nngparareal_torch.ops.chol_blocked import chol_diag_solve
+
+    dev = _card()
+    rng = np.random.default_rng(M)
+    Q, _ = np.linalg.qr(rng.normal(size=(M, M)))
+    K = (Q * np.logspace(0.0, -4.0, M)) @ Q.T
+    y = rng.normal(size=M)
+    K64 = torch.tensor(K, device=dev)
+    y64 = torch.tensor(y, device=dev)
+    L = torch.linalg.cholesky(K64)
+    z = torch.linalg.solve_triangular(L, y64[:, None], upper=False)[:, 0]
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")  # TF32 allowed
+    try:
+        d32, z32 = chol_diag_solve(K64.float(), y64.float())
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    d32, z32 = d32[:M].double(), z32[:M].double()
+    assert torch.allclose(d32, torch.diagonal(L), rtol=5e-3)
+    assert torch.allclose(z32, z, rtol=2e-2, atol=5e-3 * float(z.abs().max()))
 
 
 def test_nm_graph_capture_that_reads_back_raises():

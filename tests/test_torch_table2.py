@@ -33,8 +33,9 @@ eps=5e-7:
   tests/test_parity_slow.py allows the JAX package (its CPU value is 13),
   in the method's spread at the rounding level, which the chip run's
   range takes in.
-* The refusals (``gpjax``, ``pool=`` and ``mesh=``), and the nnGP that
-  names no search: it runs Nelder-Mead, the JAX default.
+* The refusals (``pool=`` and ``mesh=``), ``gpjax`` reaching GParareal
+  with the JAX driver's Table-2 settings, and the nnGP that names no
+  search: it runs Nelder-Mead, the JAX default.
 
 The helpers here also serve the other Table-2 files
 (tests/test_torch_table2_*.py).
@@ -52,7 +53,7 @@ import nngparareal_torch as nt
 from nngparareal_torch import driver as tdriver
 from nngparareal_torch import experiments as texp
 from nngparareal_torch.convert import load_checkpoint
-from nngparareal_torch.models import NNGParareal
+from nngparareal_torch.models import GParareal, NNGParareal
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -310,15 +311,16 @@ def test_nngp_without_a_search_is_refused():
 
 
 class _Reached(Exception):
-    """Raised where a stubbed run reaches the nnGP model."""
+    """Raised where a stubbed run reaches a GP model."""
 
 
 def _stub_parareal(models):
-    """Parareal._parareal that records its model: an nnGP stops the run
-    there (_Reached), any other model returns an empty result."""
+    """Parareal._parareal that records its model: an nnGP or a GParareal
+    stops the run there (_Reached), any other model returns an empty
+    result."""
     def run(self, model, **kw):
         models.append(model)
-        if isinstance(model, NNGParareal):
+        if isinstance(model, (NNGParareal, GParareal)):
             raise _Reached
         return {"k": 1, "converged": True, "conv_int": [], "err": None,
                 "timings": {"core_t": 1.0, "F_time": 0.0, "G_time": 0.0,
@@ -329,18 +331,29 @@ def _stub_parareal(models):
 @pytest.mark.parametrize("kwargs,match", [
     (dict(models=("nngp",)), None),
     (dict(models=("parareal", "nngp"), nngp_kw=dict(nn=3)), None),
-    (dict(models=("gpjax",), nngp_kw=GRID), "ROADMAP"),
+    (dict(models=("gpjax",), nngp_kw=GRID), "GParareal"),
     (dict(models=MODELS, nngp_kw=GRID, pool=2), "pool"),
     (dict(models=MODELS, nngp_kw=GRID, mesh=object()), "mesh"),
-])
+], ids=["kwargs0-None", "kwargs1-None", "kwargs2-ROADMAP", "kwargs3-pool",
+        "kwargs4-mesh"])  # the ids these cases had when gpjax was refused
 def test_run_table2_refusals(kwargs, match, monkeypatch):
     """Each refusal comes before any model runs. Without a search named
     (``match`` None) nothing is refused: the first system's nnGP is built
     with Nelder-Mead, the JAX default, and its neighbour count, or the
-    one ``nngp_kw`` gives."""
+    one ``nngp_kw`` gives. ``gpjax`` is not refused: it runs GParareal
+    with the JAX driver's Table-2 settings (Nelder-Mead, fatol = xatol =
+    1e-6, at most 400 iterations; ``nngp_kw`` is the nnGP's alone)."""
     models = []
     monkeypatch.setattr(tdriver.Parareal, "_parareal",
                         _stub_parareal(models))
+    if match == "GParareal":
+        with pytest.raises(_Reached):
+            texp.run_table2(EPS, results_dir=None, device="cpu", **kwargs)
+        (mdl,) = models
+        assert isinstance(mdl, GParareal)
+        assert (mdl.optimizer, mdl.fatol, mdl.xatol, mdl.nm_max_iters) == (
+            "nm", 1e-6, 1e-6, 400)
+        return
     if match is None:
         with pytest.raises(_Reached):
             texp.run_table2(EPS, results_dir=None, device="cpu", **kwargs)
