@@ -85,11 +85,41 @@ Phases, each printed as it ends with its seconds:
              64 to 1024 rows, the cuSOLVER kernels it launched, and one
              fit's search replayed from its graphs and run with eager
              launches: bitwise equal.
-9. serial    the runs' converged iterates against fine solves, slice by
+9. figure2   the sixth path: study 1 of the paper's Figure 2
+             (scripts/figure2_rossler.py): Rossler (N=40, eps=5e-7), bare
+             Parareal with debug=True and eight kNN-mean shadows (nn 1, 2,
+             3, 4, 5, 10, 15, 30) through the driver's comp_models: each
+             iteration one truth fan-out of every slice, the shadows fitted
+             on the same dataset and predicting every active interval. K
+             must be 18, every shadow must hold 18 finite error arrays,
+             and at every k from 1 to 7 the log10 mean error of each
+             shadow and of the Parareal correction must lie within 0.02
+             decades of results/figure2_rossler.pkl (the JAX package's run
+             on the CPU, which its current code reproduces exactly); every
+             shadow must lie below the Parareal correction at k = 5, 6, 7.
+             Prints the 9 x 3 table of log10 errors at k = 5, 6, 7.
+10. variants the seventh path, one run after another, each with its
+             kernel's launches counted alone: the time-augmented nnGP
+             (NNGPTime) on Lorenz at tests/test_variants.py's bounded
+             configuration (nn=14, reps=2, nn_iters=2, nm_max_iters=80,
+             its searches as CUDA graphs), K in 20-23 (the JAX package's
+             23 on the CPU, and 20 and 20 under its 4e-16 control), and
+             one round's search replayed bitwise its eager run; NNGPTime
+             at the reference's full configuration (nn=11, n_restarts=20,
+             nn_iters=20, reps=10, nm_max_iters=150) timed on the last
+             interval of that run's last dataset (a finite prediction);
+             the nnGP's col+rnd and row neighbour strategies on FHN (nn=16,
+             grid), K 7 and 10; ELM (m=10, res_size=20) and kNN-mean
+             (nn=15) on FHN, K 14 and 39; Hopf N=32 with the grid nnGP
+             (nn=15) under selector='loo' and under posterior='lu', K 9
+             each, with the LU and Cholesky shares of the 'lu' run's
+             predictions. Each K is the JAX package's on the CPU; every
+             conv_int is printed beside JAX's.
+11. serial    the runs' converged iterates against fine solves, slice by
              slice (atol 2e-5, as tests/test_parareal.py holds the JAX
              package): Burgers one slice after another from u0; FHN-PDE
-             and each Table-2 run (every search and model) with one kernel
-             fan-out from the converged starts.
+             and each Table-2, figure2 and variants run (every search and
+             model) with one kernel fan-out from the converged starts.
 
 Then one JSON line describing each kernel (its launches on its path's
 run, split by shape into fine fan-outs and coarse solves,
@@ -182,6 +212,38 @@ GP_CHOL_BATCH = 162
 # (tests/test_torch_table2.py:test_tomlab_parareal_k_of_the_jax_package)
 TOMLAB_K = 30
 HOPF_FINE_MULT = 10000  # run_hopf's fine steps: Config(N=512)'s Nf x 10000
+
+# Figure 2, study 1 (scripts/figure2_rossler.py:37-51): the kNN-mean
+# shadows beside bare Parareal on Rossler; K and the log10 mean errors of
+# the JAX package's run on the CPU (results/figure2_rossler.pkl)
+FIG2_NN = (1, 2, 3, 4, 5, 10, 15, 30)
+FIG2_K = 18
+FIG2_PICKLE = os.path.join("results", "figure2_rossler.pkl")
+FIG2_DECADES = 0.02  # the gap allowed for the card's ulp-level fan-out
+# the variants, each with the JAX package's K and conv_int on the CPU
+# NNGPTime on Lorenz at tests/test_variants.py:61's bounded configuration:
+# JAX's K=23 on the CPU; under its control (u0 moved by 4e-16, three sign
+# draws) 23, 20 and 20, hence the range (the test there asserts K <= 13,
+# which the current JAX package does not reach)
+NNGP_TIME_LORENZ = dict(nn=14, reps=2, nn_iters=2, nm_max_iters=80, seed=45)
+NNGP_TIME_K = (20, 23)
+NNGP_TIME_CONV_INT_CPU = [1, 2, 3, 4, 5, 6, 8, 9, 17, 18, 19, 24, 28, 33,
+                          34, 35, 36, 37, 39, 40, 44, 47, 50]
+# the reference's full configuration (PARITY.md:366-400), timed only, on
+# one interval (two measured 6.0-6.9 s each on an H100, the first with
+# the capture of its graphs: the script's 600 s budget keeps one)
+NNGP_TIME_FULL = dict(nn=11, n_restarts=20, nn_iters=20, reps=10,
+                      nm_max_iters=150)
+# FHN, nnGP grid search with nn=16 (scripts/strategy_table.py:58-59): the
+# current JAX package on the CPU. results/strategy_k.json, written by an
+# earlier revision, has col+rnd 6
+STRATEGIES_FHN = {"col+rnd": (7, [1, 2, 3, 5, 15, 37, 40]),
+                  "row": (10, [1, 2, 3, 4, 5, 6, 8, 11, 32, 40])}
+ELM_FHN = (14, [1, 2, 3, 4, 5, 6, 7, 9, 14, 18, 23, 27, 37, 40])
+KNN_FHN = (39, list(range(1, 31)) + list(range(32, 41)))
+# Hopf N=32, grid nnGP nn=15, with the LOO selector and the LU posterior
+HOPF_VARIANT_K = 9
+HOPF_VARIANT_CONV_INT_CPU = [1, 2, 3, 4, 5, 6, 7, 26, 32]
 
 # f64 operations of one field evaluation, per thread of the kernel (one
 # grid point of Burgers, one cell of FHN-PDE with both species, one slice
@@ -784,23 +846,25 @@ def zero_counts():
 
 
 def record_launches(state, field, path):
-    """A path's launches of its field's kernel into the kernel's entry:
+    """A run's launches of its field's kernel into the kernel's entry:
     the total (``launches`` holds the first path's; ``launches_by_path``
-    each path's), and by (tableau, steps): its fine fan-outs and its
-    coarse solves."""
+    each path's, summed over its runs), and by (tableau, steps): its fine
+    fan-outs and its coarse solves."""
+    entry = state["kernels"][field]
     from nngparareal_torch.ops import rk_cuda
 
-    entry = state["kernels"][field]
     n = rk_cuda.rk_fanout.launches_by_field[field]
     by_path = entry.setdefault("launches_by_path", {})
-    by_path[path] = n
-    shapes = {f"{tab} x {steps}": k for (name, tab, steps), k
-              in rk_cuda.rk_fanout.launches_by_shape.items() if name == field}
+    by_path[path] = by_path.get(path, 0) + n
+    shapes = shape_counts(field)
     if entry["launches"] is None:
         entry["launches"] = n
         entry["launches_by_shape"] = shapes
     else:
-        entry.setdefault("launches_by_shape_by_path", {})[path] = shapes
+        path_shapes = entry.setdefault("launches_by_shape_by_path",
+                                       {}).setdefault(path, {})
+        for key, k in shapes.items():
+            path_shapes[key] = path_shapes.get(key, 0) + k
     return n, shapes
 
 
@@ -1024,8 +1088,7 @@ def phase_table2_nm(state):
         torch.cuda.synchronize()
         field = TABLE2[row["system"]][0]
         read_counts(state, field, "table2_nm")
-        shapes[row["system"]] = record_launches(state, field,
-                                                "table2_nm")[1]
+        shapes[row["system"]] = shape_counts(field)
         return row
 
     kept = []
@@ -1131,7 +1194,7 @@ def phase_table2_gp(state):
         torch.cuda.synchronize()
         field = TABLE2[row["system"]][0]
         read_counts(state, field, path[0])
-        shapes.append(record_launches(state, field, path[0])[1])
+        shapes.append(shape_counts(field))
         return row
 
     kept = []
@@ -1297,6 +1360,264 @@ def gp_graph_vs_eager(dev, p, out, iters=48):
             "eager_ms_per_iteration": 1e3 * eager_s / max(run_eager, 1)}
 
 
+def fig2_log_errors(errs):
+    """log10 of the mean error of each of an iteration list's arrays."""
+    import numpy as np
+
+    out = []
+    for e in errs:
+        e = np.where(np.isfinite(e), e, np.nan)
+        out.append(float(np.log10(np.nanmean(e))))
+    return out
+
+
+def _system_parareal(name, dev, N=None):
+    """A Table-2 system's Parareal at its published configuration, the
+    kernel as its fine fan-out."""
+    import nngparareal_torch as nt
+
+    ode = getattr(nt, name)(normalization="-11", device=dev)
+    cfg = nt.Config(ode, N=N).get()
+    solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
+                         G=cfg["G"], F=cfg["F"],
+                         device_field=ode.get_device_field(), device=dev)
+    return nt.Parareal(ode, solver, cfg["tspan"], cfg["N"], epsilon=5e-7,
+                       device=dev)
+
+
+def counted_run(state, field, path, p, **kw):
+    """One run of ``p`` with its kernel's launches counted alone: (out,
+    launches, launches by shape)."""
+    import torch
+
+    zero_counts()
+    out = p.run(**kw)
+    torch.cuda.synchronize()
+    launches = read_counts(state, field, path)
+    return out, launches, shape_counts(field)
+
+
+def shape_counts(field):
+    """The field's launches since the counts were set to 0, by (tableau,
+    steps): its fine fan-outs and its coarse solves."""
+    from nngparareal_torch.ops import rk_cuda
+
+    return {f"{tab} x {steps}": k for (name, tab, steps), k
+            in rk_cuda.rk_fanout.launches_by_shape.items() if name == field}
+
+
+def phase_figure2(state):
+    """Study 1 of Figure 2: bare Parareal on Rossler with eight kNN-mean
+    shadows, against the JAX package's run (the pickle)."""
+    import numpy as np
+    from nngparareal_torch.convert import load_checkpoint
+
+    dev = state["device"]
+    p = _system_parareal("Rossler", dev)
+    shadows = [("knn_mean", {"nn": nn, "cstm_name": f"{nn}-NN"})
+               for nn in FIG2_NN]
+    out, launches, shapes = counted_run(
+        state, "rossler", "figure2", p, model="parareal",
+        comp_models=shadows, debug=True, cstm_mdl_name="para_study")
+    check_iterates("figure2", p, out)
+    state["table2"].append(("Rossler parareal (figure2)", p, out))
+    # numpy arrays and Python data only, as a checkpoint holds
+    ref = load_checkpoint(os.path.join(HERE, FIG2_PICKLE))
+    dd = out["debug_dict"]
+    errs = {"Para": dd["all_pred_err"], **dd["err_store_mdls"]}
+    want = {"Para": ref["para_err"], **ref["para_shadows"]}
+    failures = []
+    if not out["converged"] or out["k"] != FIG2_K:
+        failures.append(f"K={out['k']} converged={out['converged']}, "
+                        f"expected {FIG2_K}")
+    if p.runs.get("para_study") is not out:
+        failures.append("the run is not kept as runs['para_study']")
+    logs, gaps = {}, {}
+    for name, e in errs.items():
+        if len(e) != FIG2_K or not all(np.isfinite(x).all() for x in e):
+            failures.append(f"{name}: {len(e)} error arrays, finite="
+                            f"{all(np.isfinite(x).all() for x in e)}")
+            continue
+        logs[name] = fig2_log_errors(e)
+        ref_logs = fig2_log_errors(want[name])
+        gaps[name] = max(abs(a - b) for a, b in zip(logs[name][:7],
+                                                    ref_logs[:7]))
+        if gaps[name] > FIG2_DECADES:
+            failures.append(f"{name}: log10 mean error {gaps[name]:.4f} "
+                            f"decades from the JAX run at k <= 7")
+    for name in list(logs)[1:]:
+        if not all(logs[name][k] < logs["Para"][k] for k in (4, 5, 6)):
+            failures.append(f"{name} is not below the Parareal correction "
+                            "at k = 5, 6, 7")
+    if failures:
+        raise PhaseError("figure2: " + "; ".join(failures))
+    info = run_info(out, p.N)
+    info.update(launches=launches, launches_by_shape=shapes,
+                max_gap_decades=max(gaps.values()),
+                log10_err_k5_k6_k7={n: [round(v, 3) for v in l[4:7]]
+                                    for n, l in logs.items()})
+    return info
+
+
+def run_variant(state, name, field, p, want_k, conv_int_cpu, **kw):
+    """One variant run with its kernel's launches counted alone, held to
+    its K; returns (out, info)."""
+    out, launches, shapes = counted_run(state, field, "variants", p, **kw)
+    check_iterates(name, p, out)
+    state["table2"].append((name, p, out))
+    info = run_info(out, p.N)
+    info.update(launches=launches, launches_by_shape=shapes,
+                conv_int_jax_cpu=conv_int_cpu)
+    tm = out["timings"]
+    if "nm_iterations" in tm:
+        its = tm["nm_iterations"] or [0]
+        info.update(nm_searches=len(tm["nm_iterations"]),
+                    nm_iterations_mean=sum(its) / len(its),
+                    nm_iterations_max=max(its),
+                    nm_graph_replays=tm["nm_graph_replays"])
+    lo, hi = want_k if isinstance(want_k, tuple) else (want_k, want_k)
+    if not out["converged"] or not lo <= out["k"] <= hi:
+        raise PhaseError(f"variants, {name}: converged={out['converged']} "
+                         f"K={out['k']}, expected {lo}-{hi}")
+    return out, info
+
+
+def phase_variants(state):
+    """The comparison models and research variants, each run on its
+    system's kernel with its launches counted alone."""
+    from nngparareal_torch.models import NNGParareal
+
+    dev = state["device"]
+    info = {}
+    p = _system_parareal("Lorenz", dev)
+    out, info["nngp_time_lorenz"] = run_variant(
+        state, "Lorenz NNGPtime", "lorenz", p, NNGP_TIME_K,
+        NNGP_TIME_CONV_INT_CPU, model="nngp_time", add_model=True,
+        **NNGP_TIME_LORENZ)
+    import torch
+
+    # the run's graphs hold inference tensors (the driver's loop runs in
+    # inference mode): replay them in it
+    with torch.inference_mode():
+        info["nngp_time_lorenz"]["graph_vs_eager"] = time_graph_vs_eager(
+            dev, p, out)
+        info["nngp_time_full"] = time_full_config(dev, p, out)
+    for strategy, (k, conv) in STRATEGIES_FHN.items():
+        p = _system_parareal("FHNODE", dev)
+        info[f"fhn_{strategy}"] = run_variant(
+            state, f"FHN NNGP{strategy}", "fhn_ode", p, k, conv,
+            model="nngp", nn=16, strategy=strategy, optimizer="grid")[1]
+    p = _system_parareal("FHNODE", dev)
+    info["fhn_elm"] = run_variant(state, "FHN ELM", "fhn_ode", p, *ELM_FHN,
+                                  model="elm", m=10, res_size=20)[1]
+    p = _system_parareal("FHNODE", dev)
+    info["fhn_knn_mean"] = run_variant(state, "FHN kNN-mean", "fhn_ode", p,
+                                       *KNN_FHN, model="knn_mean", nn=15)[1]
+    for key, kw in (("loo", dict(selector="loo")), ("lu", dict(posterior="lu"))):
+        p = _system_parareal("Hopf", dev, N=32)
+        mdl = NNGParareal(p.n, p.N, nn=15, optimizer="grid", **kw)
+        out, info[f"hopf_{key}"] = run_variant(
+            state, f"Hopf_32 nnGP {key}", "hopf", p, HOPF_VARIANT_K,
+            HOPF_VARIANT_CONV_INT_CPU, model=mdl)
+        if key == "lu":
+            tm = out["timings"]
+            info["hopf_lu"].update(lu_taken=tm["lu_taken"],
+                                   chol_taken=tm["chol_taken"])
+    return info
+
+
+def time_graph_vs_eager(dev, p, out):
+    """One NNGPTime round's search from a run's data: the replay of its
+    graphs and the same search with eager launches must be bitwise equal;
+    each timed by the host clock between synchronises, per iteration."""
+    import torch
+    from nngparareal_torch.models.base import Dataset
+
+    mdl = out["mdl"]
+    X = torch.as_tensor(out["x"], device=dev)
+    D = torch.as_tensor(out["D"], device=dev)
+    ds = Dataset(X, D, torch.ones(X.shape[0], dtype=X.dtype, device=dev))
+    searches = []
+    search = mdl._search
+
+    def keep(x0, data, graphed=None):
+        searches.append((x0.clone(), [d.clone() for d in data]))
+        return search(x0, data, graphed)
+
+    mdl._search = keep
+    try:
+        i = p.N - 1
+        aux = {k: torch.as_tensor(v[i], device=dev) for k, v in
+               mdl.sweep_aux(mdl.k, p.N, ds.capacity).items()}
+        q = torch.as_tensor(out["u"][i], device=dev)
+        mdl.predict_fn(ds, q, q, q, i, aux_i=aux)
+    finally:
+        mdl._search = search
+    x0, data = searches[0]
+    timed = {}
+    for graphed in (True, False):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        res = mdl._search(x0, data, graphed=graphed)
+        torch.cuda.synchronize()
+        timed[graphed] = (res, time.perf_counter() - tic,
+                          mdl.nm_stats["iterations"][-1])
+    (got, graph_s, _), (want, eager_s, live) = timed[True], timed[False]
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    if not same:
+        raise PhaseError("NNGPTime's Nelder-Mead graph replay differs from "
+                         "the eager run")
+    nmg = mdl._graphs[(x0.device, data[0].shape[1])]
+    run = nmg.last["run"]
+    return {"bitwise": same, "simplexes": int(x0.shape[0]),
+            "m": int(data[0].shape[1]), "iterations_graph": run,
+            "iterations_eager": live,
+            "graph_ms_per_iteration": 1e3 * graph_s / max(run, 1),
+            "eager_ms_per_iteration": 1e3 * eager_s / max(live, 1)}
+
+
+def time_full_config(dev, p, out):
+    """NNGPTime at the reference's full configuration, timed on the last
+    interval of a run's last dataset (its valid rows, at the run's last
+    k), with the model's own draws: seconds (the capture of its graphs
+    included), Nelder-Mead iterations and replays, and the peak of the
+    memory it allocated above what was allocated before it; the
+    prediction finite."""
+    import numpy as np
+    import torch
+    from nngparareal_torch.models import NNGPTime
+    from nngparareal_torch.models.base import Dataset
+
+    X = torch.as_tensor(out["x"], device=dev)
+    D = torch.as_tensor(out["D"], device=dev)
+    ds = Dataset(X, D, torch.ones(X.shape[0], dtype=X.dtype, device=dev))
+    mdl = NNGPTime(p.n, p.N, **NNGP_TIME_FULL)
+    k = out["k"] - 1
+    mdl.fit(ds, k)
+    aux = mdl.sweep_aux(k, p.N, ds.capacity)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    i = p.N - 1
+    aux_i = {key: torch.as_tensor(v[i], device=dev) for key, v in aux.items()}
+    q = torch.as_tensor(out["u"][i], device=dev)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    pred = mdl.predict_fn(ds, q, q, q, i, aux_i=aux_i)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - tic
+    its = mdl.nm_stats["iterations"]
+    if not np.isfinite(pred.cpu().numpy()).all():
+        raise PhaseError(f"NNGPTime full configuration: interval {i} "
+                         "predicts non-finite values")
+    return {"rows_in_dataset": int(X.shape[0]), "k": k, "interval": i,
+            "simplexes": mdl.chains * mdl.tasks_per_chain, "s": secs,
+            "nm_rounds": len(its), "nm_iterations_mean": float(np.mean(its)),
+            "nm_iterations_max": int(max(its)),
+            "replays": mdl.nm_stats["replays"],
+            "peak_mem_mb": (torch.cuda.max_memory_allocated(dev) - base)
+            / 2**20}
+
+
 def phase_serial(state):
     import numpy as np
     import torch
@@ -1399,6 +1720,8 @@ def main():
         phases.run("table2", phase_table2, state)
         phases.run("table2_nm", phase_table2_nm, state)
         phases.run("table2_gp", phase_table2_gp, state)
+        phases.run("figure2", phase_figure2, state)
+        phases.run("variants", phase_variants, state)
         phases.run("serial", phase_serial, state)
     except Exception as exc:  # report the phase, exit nonzero
         signal.alarm(0)

@@ -20,9 +20,10 @@ from nngparareal_torch.systems import (
     ThomasLabyrinth,
     FHNPDE,
     Burgers,
+    DiffReact,
 )
 from nngparareal_torch.systems.configs import Config
-from nngparareal_torch.solver import RKSolver
+from nngparareal_torch.solver import RKSolver, ScipySolver
 from nngparareal_torch.driver import Parareal
 
 __all__ = [
@@ -36,7 +37,9 @@ __all__ = [
     "ThomasLabyrinth",
     "FHNPDE",
     "Burgers",
+    "DiffReact",
     "Config",
     "RKSolver",
+    "ScipySolver",
     "Parareal",
 ]

@@ -6,7 +6,8 @@ k, I, the timings and the model state, all as numpy arrays and Python
 scalars. ``from_jax_checkpoint`` turns such a payload into the port's
 form, and ``load_checkpoint`` unpickles a file without importing jax: it
 refuses any class outside numpy, so a pickle that holds JAX objects fails
-with a clear message instead.
+with a clear message instead. ``elm_params_from_jax`` carries an ELM's
+random projection across from the JAX model's arrays.
 """
 
 import pickle
@@ -95,4 +96,19 @@ def from_jax_checkpoint(payload, device=None):
     out["conv_int"] = [int(c) for c in payload.get("conv_int", [])]
     out["k"] = int(payload["k"])
     out["I"] = int(payload["I"])
+    return out
+
+
+def elm_params_from_jax(bias, C):
+    """The random projection of a JAX ``ELM`` (its ``_bias`` (res, 1) and
+    ``_C`` (res, P), handed over as numpy arrays) as the keywords of the
+    port's ``ELM.set_projection``: f64 copies, checked to be plain numpy
+    data of the right ranks."""
+    _check_plain([bias, C], "ELM projection")
+    out = {"bias": np.array(bias, dtype=np.float64),
+           "C": np.array(C, dtype=np.float64)}
+    if out["bias"].ndim != 2 or out["bias"].shape[1] != 1 or (
+            out["C"].ndim != 2 or out["C"].shape[0] != out["bias"].shape[0]):
+        raise ValueError(f"ELM projection shapes {out['bias'].shape} and "
+                         f"{out['C'].shape}; expected (res, 1) and (res, P)")
     return out

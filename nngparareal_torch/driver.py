@@ -12,6 +12,14 @@ Port of ``nngparareal_tpu/driver.py:Parareal``. Each iteration does:
    for once per iteration, at the convergence check (and, with the
    Nelder-Mead search, after each of its graph replays).
 
+With ``debug`` (set by ``comp_models``) each iteration also integrates
+every slice from the new iterate with one fine fan-out (the truth), and
+records the corrected predictions' errors against it; each shadow model
+of ``comp_models`` is fitted on the same dataset, draws its own
+``sweep_aux`` and predicts every active interval after the sweep, its
+errors going to ``debug_dict["err_store_mdls"]`` (the harness of the
+reference's Figure 2).
+
 The convergence bookkeeping (prefix freeze, err columns, early stop, the
 finite guards and the iterate clipping) follows the JAX package exactly:
 its iterations-to-convergence K are the acceptance oracle.
@@ -19,8 +27,10 @@ its iterations-to-convergence K are the acceptance oracle.
 Left out: the JAX package's AOT/compile-cache machinery (torch has no
 compile step here), its power-of-two fan-out buckets (the kernel takes
 any batch, and frozen slices would recompute the same values), the 5e-9
-``host_cpu`` router (the H100 has IEEE f64), mesh sharding, and the
-debug/shadow-model harness, and the options no caller here sets.
+``host_cpu`` router (the H100 has IEEE f64) and the routing of the
+time-augmented nnGP's sweep to the CPU (a workaround for a TPU toolchain
+fault; on a card it runs on the card), mesh sharding, and the options no
+caller here sets.
 """
 
 import os
@@ -32,7 +42,8 @@ import torch
 
 from nngparareal_torch.convert import from_jax_checkpoint, load_checkpoint
 from nngparareal_torch.models import (
-    BareParareal, Dataset, GParareal, GPScipy, NNGParareal,
+    ELM, BareParareal, Dataset, GParareal, GPScipy, KNNMean, NNGParareal,
+    NNGPScipy, NNGPTime,
 )
 from nngparareal_torch.models.base import ModelBase
 from nngparareal_torch.solver import SolverAbstr
@@ -49,7 +60,45 @@ _GP_KEYS = ("theta", "seed", "fatol", "xatol", "nm_max_iters", "optimizer",
             "score_dtype", "grid_chunk", "grid_task_chunk", "grid_logs",
             "alpha_res_tol", "fit_rows_cap", "score_rows_cap")
 _GP_SCIPY_KEYS = ("theta", "seed", "fatol", "xatol")
-_MODEL_KEYS = tuple(dict.fromkeys(_NNGP_KEYS + _GP_KEYS))
+_NNGP_SCIPY_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol")
+_NNGP_TIME_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol",
+                   "nm_max_iters", "nn_iters", "reps")
+_ELM_KEYS = ("seed", "res_size", "loss", "M", "R", "alpha", "degree", "m")
+_MODEL_KEYS = tuple(dict.fromkeys(_NNGP_KEYS + _GP_KEYS + _NNGP_TIME_KEYS
+                                  + _ELM_KEYS))
+# the model names of the JAX package's _make_model: (names, class, its
+# keywords, its defaults)
+_MODELS = (
+    (("parareal",), BareParareal, (), {}),
+    (("nngp", "nngparareal"), NNGParareal, _NNGP_KEYS, {}),
+    (("gpjax", "gp", "gparareal"), GParareal, _GP_KEYS, {}),
+    (("gpjax_scipy", "gp_oracle"), GPScipy, _GP_SCIPY_KEYS, {}),
+    (("nngp_scipy", "nngp_oracle"), NNGPScipy, _NNGP_SCIPY_KEYS, {}),
+    (("nngp_time", "nngptime"), NNGPTime, _NNGP_TIME_KEYS, {}),
+    (("knn_mean", "nn_mean", "knnmean"), KNNMean, ("nn",), {}),
+    (("elm",), ELM, _ELM_KEYS, {"seed": 47}),
+)
+MODEL_NAMES = tuple(name for names, *_ in _MODELS for name in names)
+
+
+def _aux_to(aux, dev):
+    """A model's ``sweep_aux`` draw (an array, a dict of arrays or None)
+    as f64 tensors on ``dev``: one copy per entry per sweep."""
+    if aux is None:
+        return None
+    if isinstance(aux, dict):
+        return {k: torch.as_tensor(v, dtype=torch.float64, device=dev)
+                for k, v in aux.items()}
+    return torch.as_tensor(aux, dtype=torch.float64, device=dev)
+
+
+def _aux_row(aux, i):
+    """Interval i's row of a sweep's draw (of each entry of a dict)."""
+    if aux is None:
+        return None
+    if isinstance(aux, dict):
+        return {k: v[i] for k, v in aux.items()}
+    return aux[i]
 
 
 class Parareal:
@@ -76,15 +125,21 @@ class Parareal:
         self.ode_name = ode.name
         self.n = ode.get_dim()
         self.u0 = ode.get_init_cond()
+        # each run's output by its model's name (or ``cstm_mdl_name``)
+        self.runs = {}
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
 
-    def run(self, model="parareal", **kwargs):
+    def run(self, model="parareal", cstm_mdl_name=None, add_model=False,
+            **kwargs):
         """Run to convergence (or ``early_stop`` iterations); returns the
-        JAX package's result dict: t, u, err, x, D, k, timings, converged,
-        conv_int (and u_hist with ``keep_history``)."""
+        JAX package's result dict: t, u, err, x, D, k, timings,
+        debug_dict, converged, conv_int (and u_hist with
+        ``keep_history``; the model as ``mdl`` with ``add_model``). The
+        result is also kept in ``self.runs`` under ``cstm_mdl_name`` or
+        the model's name."""
         mdl = self._make_model(model, kwargs)
         s_time = time.perf_counter()
         out = self._parareal(mdl, **kwargs)
@@ -92,6 +147,9 @@ class Parareal:
         out["timings"]["runtime"] = out["timings"]["core_t"]
         if self.verbose == "v":
             print(f"Elapsed Parareal time: {out['timings']['runtime']:0.2f}s")
+        if add_model:
+            out["mdl"] = mdl
+        self.runs[mdl.name if cstm_mdl_name is None else cstm_mdl_name] = out
         return out
 
     def _make_model(self, model, kwargs):
@@ -101,23 +159,29 @@ class Parareal:
         if isinstance(model, ModelBase):
             return model
         key = str(model).lower()
+        for names, cls, keys, defaults in _MODELS:
+            if key in names:
+                # the JAX package drops the keywords a model does not take
+                own = {k: v for k, v in kw.items() if k in keys}
+                return cls(n=self.n, N=self.N, **{**defaults, **own})
+        raise ValueError(f"Unknown model {model!r}")
 
-        def own(keys):
-            # the JAX package drops the keywords a model does not take
-            return {k: v for k, v in kw.items() if k in keys}
-
-        if key == "parareal":
-            return BareParareal(n=self.n, N=self.N)
-        if key in ("nngp", "nngparareal"):
-            return NNGParareal(n=self.n, N=self.N, **own(_NNGP_KEYS))
-        if key in ("gpjax", "gp", "gparareal"):
-            return GParareal(n=self.n, N=self.N, **own(_GP_KEYS))
-        if key in ("gpjax_scipy", "gp_oracle"):
-            return GPScipy(n=self.n, N=self.N, **own(_GP_SCIPY_KEYS))
-        raise NotImplementedError(
-            f"model {model!r} is not ported yet (ROADMAP.md, modules still "
-            "to port)"
-        )
+    def _shadows(self, comp_models):
+        """[name, model] of each shadow: a model instance (its name), a
+        model name (that name), or (name, keywords), named by the keyword
+        ``cstm_name`` or "name:model name"."""
+        shadows = []
+        for spec in comp_models:
+            if isinstance(spec, ModelBase):
+                shadows.append([spec.name, spec])
+            elif isinstance(spec, str):
+                shadows.append([spec, self._make_model(spec, {})])
+            else:
+                name, skw = spec
+                mdl = self._make_model(name, dict(skw))
+                shadows.append([skw.get("cstm_name", f"{name}:{mdl.name}"),
+                                mdl])
+        return shadows
 
     # ------------------------------------------------------------------
     # the corrector sweep
@@ -127,8 +191,8 @@ class Parareal:
                aux=None):
         """Sequential corrector over the intervals [I, N).
 
-        Frozen intervals keep u_init/uG_init; interval i's model gets
-        ``aux[i]`` (the iteration's draw, already on the device). Every op
+        Frozen intervals keep u_init/uG_init; interval i's model gets row
+        i of ``aux`` (the iteration's draw, already on the device). Every op
         is queued on the device; nothing here reads a value back to the
         host, apart from what the model reads itself (the Nelder-Mead
         search's convergence checks).
@@ -144,7 +208,7 @@ class Parareal:
             uF_ip1, uG_ip1 = uF[i + 1], uG[i + 1]
             uGn = solver.coarse_step_raw(t0_glob + i * dt_slice, dt_slice, u_i)
             pred = model.predict_fn(ds, u_i, uF_ip1, uG_ip1, i,
-                                    aux_i=None if aux is None else aux[i])
+                                    aux_i=_aux_row(aux, i))
             # a GP prediction can come out non-finite when a near-singular
             # local Gram loses its Cholesky to rounding: fall back to the
             # classic parareal correction for those coordinates
@@ -176,6 +240,8 @@ class Parareal:
         store_int=False,
         keep_history=False,
         measure_serial_fine=True,
+        debug=False,
+        comp_models=None,
         int_dir="",
         _resume=None,
     ):
@@ -186,7 +252,11 @@ class Parareal:
         t_np = np.linspace(self.tspan[0], self.tspan[1], N + 1)
         t = torch.as_tensor(t_np, dtype=torch.float64, device=dev)
 
-        collect_data = model.needs_dataset
+        shadows = self._shadows(comp_models or ())
+        debug = debug or bool(shadows)
+        shadow_errs = {name: [] for name, _ in shadows}
+        mean_errs, max_errs, one_step_error, all_pred_err = [], [], [], []
+        collect_data = model.needs_dataset or bool(shadows)
         cap0 = N * min(N, 32)
         ds = Dataset.empty(cap0 if collect_data else N, n, device=dev)
         u0 = self.u0
@@ -282,9 +352,7 @@ class Parareal:
             # --- 4. corrector sweep ---
             # the model's draw for this sweep (the Nelder-Mead starts of
             # every interval), copied to the device once
-            aux = model.sweep_aux(k, N, ds.capacity)
-            if aux is not None:
-                aux = torch.as_tensor(aux, dtype=torch.float64, device=dev)
+            aux = _aux_to(model.sweep_aux(k, N, ds.capacity), dev)
             tic = time.perf_counter()
             u_next, uG_next, err_dev = self._sweep(
                 model, ds, I, u_init, uG_init, uF, uG, u, clip, aux)
@@ -299,11 +367,27 @@ class Parareal:
             G_time += g_est
             model.add_pred_time(k, max(0.0, dt_sweep - g_est), n_active=N - I)
 
+            # --- debug: the predictions' errors against the truth ---
+            if debug:
+                truth, pe = self._debug_errors(t, I, u_next)
+                mean_errs.append(pe.mean(axis=0))
+                max_errs.append(pe.max(axis=0))
+                all_pred_err.append(pe)
+                if verbose == "v":
+                    print(f"Avg error {pe.mean(axis=0)}, Max. error "
+                          f"{pe.max(axis=0)}")
+                for name, mdl in shadows:
+                    shadow_errs[name].append(self._shadow_errors(
+                        mdl, ds, k, I, u_next, uF, uG, uG_next, truth))
+
             # --- 5. convergence check + prefix freeze ---
             if np.isnan(err).any():
                 raise Exception(
                     "NaN values in initial coarse solve - increase Ng!"
                 )
+            if debug:
+                one_step_error.append([err[I + 1],
+                                       float(np.max(all_pred_err[-1]))])
             for p in range(I + 1, N + 1):
                 if err[p] < eps:
                     I += 1
@@ -363,6 +447,17 @@ class Parareal:
             - timings["mdl_train_t"],
         )
 
+        debug_dict = {}
+        if debug:
+            debug_dict = {
+                "one_step_error": np.array(one_step_error),
+                "all_pred_err": all_pred_err,
+                "mean_errs": mean_errs,
+                "max_errs": max_errs,
+            }
+            if shadows:
+                debug_dict["err_store_mdls"] = shadow_errs
+
         out = {
             "t": t_np,
             "u": u.cpu().numpy(),
@@ -371,12 +466,32 @@ class Parareal:
             "D": D_out,
             "k": k_done,
             "timings": timings,
+            "debug_dict": debug_dict,
             "converged": converged,
             "conv_int": conv_int,
         }
         if keep_history:
             out["u_hist"] = np.stack(hist_u, axis=2)
         return out
+
+    def _debug_errors(self, t, I, u_next):
+        """The truth, every slice fine-integrated from the new iterate in
+        one fan-out, (N, n) on the device; and |truth - u_next| of the
+        active intervals [I, N) on the host."""
+        truth = self.solver.run_F_batch(t[:-1], t[1:], u_next[:-1])
+        return truth, torch.abs(truth - u_next[1:])[I:].cpu().numpy()
+
+    def _shadow_errors(self, mdl, ds, k, I, u_next, uF, uG, uG_next, truth):
+        """A shadow model fitted on the iteration's dataset, with its own
+        draw, predicting each active interval from the new iterate: the
+        error |pred + uG_next - truth| of intervals [I, N)."""
+        mdl.fit(ds, k)
+        aux = _aux_to(mdl.sweep_aux(k, self.N, ds.capacity), self.device)
+        preds = torch.stack([
+            mdl.predict_fn(ds, u_next[i], uF[i + 1], uG[i + 1], i,
+                           aux_i=_aux_row(aux, i))
+            for i in range(I, self.N)])
+        return torch.abs(preds + uG_next[I + 1:] - truth[I:]).cpu().numpy()
 
     def _measure_serial_fine(self, t, u0):
         """One-off per-slice fine-cost estimate: a replicated micro-batch,

@@ -39,7 +39,7 @@ Not ported yet (ROADMAP.md), each refused before any model runs:
 import numpy as np
 import torch
 
-from nngparareal_torch.driver import Parareal
+from nngparareal_torch.driver import MODEL_NAMES, Parareal
 from nngparareal_torch.reporting import calc_speedup, est_serial
 from nngparareal_torch.solver import RKSolver
 from nngparareal_torch.systems import (
@@ -50,7 +50,6 @@ from nngparareal_torch.systems.configs import Config
 from nngparareal_torch.utils.io import store_pickle
 
 MODELS_DEFAULT = ("parareal", "gpjax", "nngp")
-_PORTED_MODELS = ("parareal", "gpjax", "nngp")
 _TODO = "is not ported yet (ROADMAP.md, modules still to port)"
 
 
@@ -81,11 +80,11 @@ def _summarize(name, out, N):
 
 
 def _check_models(models):
-    missing = [m for m in models if m not in _PORTED_MODELS]
-    if missing:
-        raise NotImplementedError(
-            f"models {missing} are not ported yet (ROADMAP.md, modules still "
-            f"to port); the port runs {list(_PORTED_MODELS)}")
+    """Every model name known, before any model runs."""
+    unknown = [m for m in models if m not in MODEL_NAMES]
+    if unknown:
+        raise ValueError(f"unknown models {unknown}; the port runs "
+                         f"{list(MODEL_NAMES)}")
 
 
 def _run_models(p, model_kwargs, models, results_dir, tag, nngp_kw=None,
@@ -304,7 +303,8 @@ def main(argv=None):
     ap.add_argument("--T", type=float, default=5.9)
     ap.add_argument("--epsilon", type=float, default=5e-7)
     ap.add_argument("--models", nargs="+", default=list(MODELS_DEFAULT),
-                    help="default: parareal gpjax nngp")
+                    help="default: parareal gpjax nngp (any of "
+                         f"{', '.join(MODEL_NAMES)})")
     ap.add_argument("--results-dir", default="results")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")

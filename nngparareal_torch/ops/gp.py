@@ -12,12 +12,14 @@ dataset padded to a fixed size contributes only its valid rows: padded rows
 become identity rows of the Gram and zeros of the targets. Where the JAX
 package vmaps them, the port takes the batch as leading axes: a Gram
 (..., M, M), targets (..., M), thetas (..., 2), jitter exponents (...);
-the mask (M,) is shared. Up to ``SMALL_M`` rows the factorisation is
-``ops.linalg_small``'s column loop; above it ``torch.linalg.cholesky_ex``
-(on a card cuSOLVER's batched potrf), whose failure is mapped to an
-all-NaN factor, as ``jnp.linalg.cholesky`` returns one, without reading
-anything back; an f32 NLL above it factors in ``ops.chol_blocked``. A
-non-finite NLL is +inf: that is what excludes a candidate from the search.
+the mask (M,) is shared, or (..., M) has batch axes of its own (each
+chain of the time-augmented nnGP has its own rows). Up to ``SMALL_M``
+rows the factorisation is ``ops.linalg_small``'s column loop; above it
+``torch.linalg.cholesky_ex`` (on a card cuSOLVER's batched potrf), whose
+failure is mapped to an all-NaN factor, as ``jnp.linalg.cholesky``
+returns one, without reading anything back; an f32 NLL above it factors
+in ``ops.chol_blocked``. A non-finite NLL is +inf: that is what excludes
+a candidate from the search.
 """
 
 import math
@@ -88,8 +90,8 @@ def _masked_gram_abs(K, mask, jitter_abs):
     ``jitter_abs`` is a number or a tensor of K's batch shape."""
     M = K.shape[-1]
     eye = torch.eye(M, dtype=K.dtype, device=K.device)
-    m2 = mask[:, None] * mask[None, :]
-    Km = K * m2 + torch.diag(1.0 - mask)
+    m2 = mask[..., :, None] * mask[..., None, :]
+    Km = K * m2 + torch.diag_embed(1.0 - mask)
     if torch.is_tensor(jitter_abs):
         jitter_abs = jitter_abs[..., None, None]
     return Km + jitter_abs * eye
@@ -152,13 +154,13 @@ def gp_nll(K, y, jitter_pow, mask, rel_floor=None):
     why). An f32 Gram above SMALL_M rows factors in ops.chol_blocked.
     """
     jit_abs = _pow10(jitter_pow, K)
-    m2 = mask[:, None] * mask[None, :]
+    m2 = mask[..., :, None] * mask[..., None, :]
     if rel_floor is not None:
         gersh = torch.amax(torch.sum(torch.abs(K) * m2, dim=-1), dim=-1)
         jit_abs = torch.maximum(jit_abs, rel_floor * gersh)
     Kj = _masked_gram_abs(K, mask, jit_abs)
     ym = y * mask
-    count = torch.sum(mask)
+    count = torch.sum(mask, dim=-1)
     M = K.shape[-1]
     if M <= SMALL_M:
         L = cholesky_small(Kj)

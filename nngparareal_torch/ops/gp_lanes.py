@@ -1,7 +1,8 @@
 """Batched GP kernels with the candidate batch in the LAST axis.
 
-Port of ``nngparareal_tpu/ops/gp_lanes.py`` (the parts the nnGP grid
-search runs). Matrices are stored (m, m, B) for B (theta, jitter)
+Port of ``nngparareal_tpu/ops/gp_lanes.py`` (the parts the nnGP runs: the
+NLL, optionally scored in a lower precision, the leave-one-out score and
+the Cholesky and LU posteriors). Matrices are stored (m, m, B) for B (theta, jitter)
 candidates sharing one m x m squared-distance matrix; the Cholesky and the
 substitutions are the same column loops as the JAX package, each step one
 (*, B)-wide torch op.
@@ -81,10 +82,15 @@ def k_se_log10_lanes(sqd, theta):
 
 def masked_gram_lanes(K, mask, jitter_pow):
     """Masked Gram + jitter: K (m, m, B), mask (m,), jitter_pow (B,).
-    Padded rows/cols become identity."""
+    Padded rows/cols become identity.
+
+    The identity is f64 whatever K's type, as ``jnp.eye``'s default is in
+    the JAX package's 64-bit mode: a Gram of f32 kernel values (the
+    scoring's ``dtype``) comes out f64, and is factored in f64."""
     m = K.shape[0]
     m2 = (mask[:, None] * mask[None, :])[:, :, None]
-    eye = torch.eye(m, dtype=K.dtype, device=K.device)
+    eye = torch.eye(m, dtype=torch.promote_types(K.dtype, torch.float64),
+                    device=K.device)
     Km = K * m2 + (eye * (1.0 - mask)[None, :])[:, :, None]
     return Km + eye[:, :, None] * pow10(jitter_pow)[None, None, :]
 
@@ -168,27 +174,76 @@ def solve_upper_lanes(U, Y):
     return X
 
 
-def nll_lanes(sqd, Y, theta, jitter_pow, mask):
+def _cast(dtype, *xs):
+    """The scoring inputs in ``dtype`` (None: as they are)."""
+    if dtype is None:
+        return xs
+    return tuple(x.to(dtype) for x in xs)
+
+
+def _targets(Y, mask):
+    """Masked targets (m, r, 1) of Y (m, r), or (m, r, B) of Y (m, r, B)."""
+    if Y.dim() == 2:
+        return (Y * mask[:, None])[:, :, None]  # broadcasts over B
+    return Y * mask[:, None, None]
+
+
+def _f64_or_inf(x):
+    """x in f64 (at least), non-finite values +inf."""
+    x = x.to(torch.promote_types(x.dtype, torch.float64))
+    return torch.where(torch.isfinite(x), x, torch.inf)
+
+
+def nll_lanes(sqd, Y, theta, jitter_pow, mask, dtype=None):
     """Masked GP NLL for B (theta, jitter) candidates sharing one dataset.
 
     sqd: (m, m); Y: (m, r) targets (r coordinates) or (m, r, B) per-task;
     theta: (B, 2); jitter_pow: (B,); mask: (m,).
-    Returns (r, B) NLL values (non-finite -> +inf).
+    Returns (r, B) NLL values (non-finite -> +inf) in f64.
+
+    ``dtype`` (e.g. ``torch.float32``) down-casts the scoring inputs, as
+    the JAX package does: the kernel values and the jitter's power are
+    rounded to ``dtype``, the Gram they make is f64 (``masked_gram_lanes``)
+    and so are the factor and the solve; the constant term is rounded to
+    ``dtype``. The posterior stays f64. Every step here is an elementwise
+    op or an FMA (no matrix product), so the TF32 setting of a card never
+    applies.
     """
+    sqd, Y, theta, jitter_pow, mask = _cast(dtype, sqd, Y, theta,
+                                            jitter_pow, mask)
     K = k_se_log10_lanes(sqd, theta)
     Kj = masked_gram_lanes(K, mask, jitter_pow)
     L = cholesky_lanes(Kj)
-    if Y.dim() == 2:
-        Ym = (Y * mask[:, None])[:, :, None]  # (m, r, 1), broadcasts over B
-    else:
-        Ym = Y * mask[:, None, None]
-    Z = solve_lower_lanes(L, Ym)  # (m, r, B)
+    Z = solve_lower_lanes(L, _targets(Y, mask))  # (m, r, B)
     quad = 0.5 * dot0(Z, Z)  # (r, B)
     diag = torch.diagonal(L, dim1=0, dim2=1).T  # (m, B)
     logdet = sum0(torch.where(mask[:, None] > 0, torch.log(diag), 0.0))
     count = torch.sum(mask)
-    nll = quad + logdet[None, :] + 0.5 * count * _LOG_2PI
-    return torch.where(torch.isfinite(nll), nll, torch.inf)
+    return _f64_or_inf(quad + logdet[None, :] + 0.5 * count * _LOG_2PI)
+
+
+def loo_lanes(sqd, Y, theta, jitter_pow, mask, dtype=None):
+    """Masked leave-one-out squared-residual score for B candidates.
+
+    Closed form (Rasmussen & Williams sec. 5.4.2): with alpha = K^-1 y and
+    c = diag(K^-1), the LOO residual at point i is alpha_i / c_i. Returns
+    the masked sum of squared LOO residuals, (r, B) in f64, non-finite ->
+    +inf. Arguments as ``nll_lanes``.
+    """
+    sqd, Y, theta, jitter_pow, mask = _cast(dtype, sqd, Y, theta,
+                                            jitter_pow, mask)
+    K = k_se_log10_lanes(sqd, theta)
+    Kj = masked_gram_lanes(K, mask, jitter_pow)
+    L = cholesky_lanes(Kj)
+    Z = solve_lower_lanes(L, _targets(Y, mask))
+    alpha = solve_upper_lanes(L.transpose(0, 1), Z)  # (m, r, B)
+    m = sqd.shape[0]
+    eye = torch.eye(m, dtype=L.dtype, device=L.device)[:, :, None]
+    W = solve_lower_lanes(L, eye.expand(L.shape))  # L^-1, (m, m, B)
+    cdiag = dot0(W, W)  # diag(K^-1): the column sums of squares of L^-1
+    resid = alpha / cdiag[:, None, :]
+    # mask is 0 or 1: the products are exact, so this is XLA's FMA sum
+    return _f64_or_inf(sum0((resid * resid) * mask[:, None, None]))
 
 
 def posterior_mean_lanes(sqd, sqd_q, Y, theta, jitter_pow, mask):
@@ -206,3 +261,23 @@ def posterior_mean_lanes(sqd, sqd_q, Y, theta, jitter_pow, mask):
     alpha = solve_upper_lanes(L.transpose(0, 1), Z)[:, 0, :]  # (m, B)
     k_star = k_se_log10_lanes(sqd_q[:, None], theta)[:, 0, :] * mask[:, None]
     return dot0(k_star, alpha)
+
+
+def posterior_mean_lu(sqd, sqd_q, Y, theta, jitter_pow, mask):
+    """Posterior means through a batched LU solve (partial pivoting) in
+    place of the Cholesky: at the interpolation boundary (near-duplicate
+    rows, a jitter below f64 resolution of the Gram) the factor fails but
+    the system K alpha = y is still solvable, as the reference's
+    ``np.linalg.solve`` solves it.
+
+    Arguments as ``posterior_mean_lanes``; returns (B,). The solve is the
+    library's (``torch.linalg.solve_ex``, on a card cuSOLVER's getrf; the
+    JAX package's is ``jnp.linalg.solve``): a singular system gives
+    non-finite values, with nothing read back.
+    """
+    K = k_se_log10_lanes(sqd, theta)
+    A = masked_gram_lanes(K, mask, jitter_pow).permute(2, 0, 1)  # (B, m, m)
+    y = (Y * mask[:, None]).T[:, :, None]  # (B, m, 1)
+    alpha = torch.linalg.solve_ex(A, y)[0][:, :, 0]  # (B, m)
+    k_star = k_se_log10_lanes(sqd_q[:, None], theta)[:, 0, :] * mask[:, None]
+    return dot0(k_star, alpha.T)

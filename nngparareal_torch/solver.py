@@ -8,6 +8,9 @@ Port of ``nngparareal_tpu/solver.py:RKSolver``:
 * ``coarse_step_raw`` is the coarse solve the corrector sweep calls for
   each interval.
 
+``ScipySolver`` is the host validation path: an adaptive scipy fine solve
+per slice, the coarse side delegated to an ``RKSolver``.
+
 Step counts Ng/Nf are per slice. The fine fan-out runs as the CUDA kernel
 (ops/rk_cuda.py) or as the plain torch f64 integrator (ops/rk.py), chosen
 by ``fine`` (see ``select_fine_mode``). On a card, an ODE's coarse solves
@@ -26,6 +29,7 @@ from nngparareal_torch.ops.rk import (
     make_last_integrator,
 )
 from nngparareal_torch.ops import rk_cuda
+from nngparareal_torch.systems.base import numpy_field
 from nngparareal_torch.utils.device import resolve_device
 
 
@@ -153,3 +157,61 @@ class RKSolver(SolverAbstr):
             u = self.coarse_step_raw(t_host[i], dt_slice, u)
             rows.append(u)
         return torch.stack(rows)
+
+
+class ScipySolver(SolverAbstr):
+    """Adaptive scipy fine solver for host-side validation: each fine
+    solve is ``scipy.integrate.solve_ivp`` on the host, one slice after
+    another, its field evaluated through torch (on ``device``, one round
+    trip per evaluation); Nf is a soft limit. The coarse solves delegate
+    to an ``RKSolver`` with the plain integrator on ``device``, and the
+    results come back as tensors there."""
+
+    _MAP = {"RK2": "RK23", "RK4": "RK45", "RK8": "DOP853"}
+
+    def __init__(self, f, Ng, Nf, G="RK1", F="RK45", device=None, **kwargs):
+        self.f = f
+        self.Ng = int(Ng)
+        self.Nf = int(Nf)
+        self.F = self._MAP.get(str(F).upper(), F)
+        self.kwargs = kwargs
+        self.device = resolve_device(device)
+        self.rk = RKSolver(f, Ng, Nf, G=G, F="RK4", fine="torch",
+                           device=self.device)
+        self._f_np = numpy_field(f, self.device)
+
+    def prepare(self):
+        return None
+
+    def run_F(self, t0, t1, u0):
+        from scipy.integrate import solve_ivp
+
+        t0, t1 = float(t0), float(t1)
+        u0 = torch.as_tensor(u0, dtype=torch.float64).cpu().numpy()
+        res = solve_ivp(
+            self._f_np, [t0, t1], u0, method=self.F, t_eval=(t1,),
+            max_step=(t1 - t0) / self.Nf, **self.kwargs,
+        )
+        if res.nfev > self.Nf * 1.5:
+            print(
+                f"Warning: F solver did {res.nfev / self.Nf:0.1f}x more steps "
+                "than expected"
+            )
+        return torch.as_tensor(res.y.reshape(-1), device=self.device)
+
+    def run_G(self, t0, t1, u0):
+        return self.rk.run_G(t0, t1, u0)
+
+    def run_F_batch(self, t0s, t1s, U):
+        """The fine solves of all slices, one after another on the host."""
+        t0s = torch.as_tensor(t0s, dtype=torch.float64).cpu().numpy()
+        t1s = torch.as_tensor(t1s, dtype=torch.float64).cpu().numpy()
+        U = torch.as_tensor(U, dtype=torch.float64).cpu()
+        return torch.stack([self.run_F(a, b, u)
+                            for a, b, u in zip(t0s, t1s, U)])
+
+    def run_G_chain(self, t, u0):
+        return self.rk.run_G_chain(t, u0)
+
+    def coarse_step_raw(self, t0, dt_slice, u0):
+        return self.rk.coarse_step_raw(t0, dt_slice, u0)

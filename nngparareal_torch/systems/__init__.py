@@ -8,8 +8,9 @@ from nngparareal_torch.systems.odes import (
     Lorenz,
     ThomasLabyrinth,
 )
-from nngparareal_torch.systems.pdes import FHNPDE, Burgers
+from nngparareal_torch.systems.pdes import FHNPDE, Burgers, DiffReact
 from nngparareal_torch.systems.registry import make_system
 
 __all__ = ["ODE", "FHNODE", "Rossler", "Hopf", "DblPend", "Brusselator",
-           "Lorenz", "ThomasLabyrinth", "FHNPDE", "Burgers", "make_system"]
+           "Lorenz", "ThomasLabyrinth", "FHNPDE", "Burgers", "DiffReact",
+           "make_system"]

@@ -51,6 +51,10 @@ class ODE:
 
         return f_normalized
 
+    def get_vector_field_numpy(self):
+        """Host/numpy twin of the field for scipy-based validation."""
+        return numpy_field(self.get_vector_field(), self.device)
+
     # the fan-out kernel's one-thread-per-slice functor of this system's
     # field (ops/rk_cuda.py:ODE_DIMS), or None
     device_kind = None
@@ -92,3 +96,13 @@ class ODE:
 
     def get_dim(self):
         return int(self.u0.shape[0])
+
+
+def numpy_field(f, device):
+    """``f_np(t, u)``: the torch field ``f`` with numpy in and out,
+    evaluated on ``device`` (one round trip per call on a card)."""
+    def f_np(t, u):
+        u = torch.as_tensor(np.asarray(u, dtype=float), device=device)
+        return f(t, u).cpu().numpy()
+
+    return f_np

@@ -1,8 +1,9 @@
 """Canonical per-system run parameters from the paper.
 
-Port of ``nngparareal_tpu/systems/configs.py`` for the systems the port
-has: the seven ODEs, FHN-PDE and Burgers. ``Config(ode).get()`` yields
-{tspan, u0, N, Ng, Nf, G, F} with per-slice step counts Ng/Nf (and
+Port of ``nngparareal_tpu/systems/configs.py``: the seven ODEs, FHN-PDE
+and Burgers (DiffReact has none, as in the JAX package).
+``Config(ode).get()`` yields {tspan, u0, N, Ng, Nf, G, F} with per-slice
+step counts Ng/Nf (and
 ``epsilon`` for FHN-PDE). Hopf and ThomasLabyrinth need ``N``, and their
 Config appends ``_{N}`` to the system's name, as in the JAX package.
 """
@@ -47,10 +48,8 @@ class Config:
         elif isinstance(ode, Burgers):
             cfg = self._burgers(ode.d_x, N)
         else:
-            raise NotImplementedError(
-                f"No config for {type(ode).__name__} in the port yet "
-                "(ROADMAP.md, modules still to port)"
-            )
+            # as the JAX package: DiffReact has no configuration
+            raise Exception("No config for input ODE")
 
         if "u0" in cfg:
             ode.set_default_init_cond(cfg["u0"])

@@ -1,11 +1,15 @@
-"""Discretised PDE systems: the FitzHugh-Nagumo 2D PDE and viscous Burgers.
+"""Discretised PDE systems: the FitzHugh-Nagumo 2D PDE, viscous Burgers
+and the 2D diffusion-reaction system.
 
-Port of ``nngparareal_tpu/systems/pdes.py:FHNPDE`` and ``:Burgers``. The
+Port of ``nngparareal_tpu/systems/pdes.py:FHNPDE``, ``:Burgers`` and
+``:DiffReact``. The
 periodic stencils are ``torch.roll`` over the grid axes, written over the
 last axes so that one state and a batch of slices go through the same
 field. The [-1,1]-normalised forms are also integrated by the CUDA fan-out
 kernel (ops/rk_cuda.py), which takes each field's constants as arguments
-(``get_device_field``).
+(``get_device_field``). DiffReact has no kernel form (the JAX package
+never integrates it with its Pallas kernel either): it runs with the
+plain torch fan-out, ``RKSolver(..., fine="torch")``.
 """
 
 import numpy as np
@@ -156,3 +160,65 @@ class Burgers(ODE):
 
         return BurgersField(inv_h2=self._inv_h2,
                             half_inv_2h=0.5 * self._inv_2h)
+
+
+class DiffReact(ODE):
+    """2D diffusion-reaction two-species system with Neumann-like BC, the
+    reference's adaptation of PDEBench's, d = 2 * d_x * d_y. The
+    Laplacian is assembled sparse with scipy on the host, densified and
+    moved to the device once; the field applies it as a matrix product
+    over the last axis."""
+
+    def __init__(self, d_x, Du=1e-3, Dv=5e-3, k=5e-3, seed=45, **kwargs):
+        import scipy.sparse as sp
+
+        self.d_x = int(d_x)
+        self.d_y = int(d_x)
+        self.Du, self.Dv, self.k = float(Du), float(Dv), float(k)
+        d = 2 * self.d_x * self.d_y
+        self.d = d
+
+        Nx, Ny = self.d_x, self.d_y
+        hx = 2.0 / Nx
+        hy = 2.0 / Ny
+
+        main = -2.0 * np.ones(Nx) / hx ** 2 - 2.0 * np.ones(Nx) / hy ** 2
+        main[0] = -1.0 / hx ** 2 - 2.0 / hy ** 2
+        main[-1] = -1.0 / hx ** 2 - 2.0 / hy ** 2
+        main = np.tile(main, Ny)
+        main[:Nx] = -2.0 / hx ** 2 - 1.0 / hy ** 2
+        main[Nx * (Ny - 1):] = -2.0 / hx ** 2 - 1.0 / hy ** 2
+        main[0] = -1.0 / hx ** 2 - 1.0 / hy ** 2
+        main[Nx - 1] = -1.0 / hx ** 2 - 1.0 / hy ** 2
+        main[Nx * (Ny - 1)] = -1.0 / hx ** 2 - 1.0 / hy ** 2
+        main[-1] = -1.0 / hx ** 2 - 1.0 / hy ** 2
+
+        left = np.ones(Nx)
+        left[0] = 0.0
+        left = np.tile(left, Ny)[1:] / hx ** 2
+        right = np.ones(Nx)
+        right[-1] = 0.0
+        right = np.tile(right, Ny)[:-1] / hx ** 2
+        bottom = np.ones(Nx * (Ny - 1)) / hy ** 2
+        top = np.ones(Nx * (Ny - 1)) / hy ** 2
+
+        lap = sp.diags(
+            [main, left, right, bottom, top], [0, -1, 1, -Nx, Nx]
+        ).toarray()
+
+        mn, mx = np.array([[-4.0] * d, [4.0] * d])
+        rng = np.random.default_rng(seed)
+        u0 = rng.uniform(size=d)
+        super().__init__(f"DiffReact2D_{d_x}", mn, mx, u0, **kwargs)
+        # the transposed operator, so that u @ lap_t is lap @ u for a
+        # batch of states over the last axis
+        self._lap_t = torch.as_tensor(lap.T.copy(), device=self.device)
+
+    def _f(self, t, y):
+        d = self._lap_t.shape[0]
+        u, v = y[..., :d], y[..., d:]
+        react_u = u - u ** 3 - self.k - v
+        react_v = u - v
+        u_t = react_u + self.Du * (u @ self._lap_t)
+        v_t = react_v + self.Dv * (v @ self._lap_t)
+        return torch.cat([u_t, v_t], dim=-1)

@@ -3,8 +3,7 @@
 Port of ``nngparareal_tpu/systems/registry.py``: names like
 ``'rossler_long_n'`` or ``'non_aut512_n'``, where the ``_n`` suffix turns
 on the [-1,1] normalisation and an embedded integer selects N, and the
-modern class names. ``diffreact`` is known but refused: the port has no
-``DiffReact`` yet (ROADMAP.md, modules still to port, item 1).
+modern class names.
 """
 
 import re
@@ -18,7 +17,7 @@ from nngparareal_torch.systems.odes import (
     Lorenz,
     ThomasLabyrinth,
 )
-from nngparareal_torch.systems.pdes import FHNPDE, Burgers
+from nngparareal_torch.systems.pdes import FHNPDE, Burgers, DiffReact
 
 _ALIASES = {
     "fhn": FHNODE,
@@ -36,7 +35,7 @@ _ALIASES = {
     "thomaslabyrinth": ThomasLabyrinth,
     "fhn_pde": FHNPDE,
     "burgers": Burgers,
-    "diffreact": None,  # not ported yet
+    "diffreact": DiffReact,
 }
 
 
@@ -58,10 +57,6 @@ def make_system(name, **kwargs):
     if key not in _ALIASES:
         raise KeyError(f"Unknown system {name!r}; known: {sorted(_ALIASES)}")
     cls = _ALIASES[key]
-    if cls is None:
-        raise NotImplementedError(
-            f"system {name!r} (DiffReact) is not ported yet (ROADMAP.md, "
-            "modules still to port, item 1)")
-    if cls in (FHNPDE, Burgers) and "d_x" not in kwargs:
+    if cls in (FHNPDE, Burgers, DiffReact) and "d_x" not in kwargs:
         raise TypeError(f"{cls.__name__} requires d_x=")
     return cls(**kwargs), params

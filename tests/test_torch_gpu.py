@@ -7,7 +7,11 @@ bitwise the eager search and the full 200-iteration loop, a capture that
 reads back raising, the lane-major sums as FMAs, bitwise the CPU's, and a
 candidate's NLL independent of the lanes beside it; GParareal's search
 replayed bitwise its eager run, its fit against the CPU's, cuSOLVER's
-failed factor mapped to NaN, and the f32 blocked factor against f64. Run on a machine with
+failed factor mapped to NaN, and the f32 blocked factor against f64; the
+comparison models and variants against the port on the CPU: kNN-mean
+bitwise, the ELM within the CPU's control, the neighbour strategies'
+indices exactly, ``loo_lanes`` and the LU posterior, and one NNGPTime
+prediction from graphs bitwise its eager run. Run on a machine with
 one:
 ``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
 Without a card every test here skips.
@@ -459,6 +463,155 @@ def test_f32_blocked_factor_on_card_tracks_f64(M):
     d32, z32 = d32[:M].double(), z32[:M].double()
     assert torch.allclose(d32, torch.diagonal(L), rtol=5e-3)
     assert torch.allclose(z32, z, rtol=2e-2, atol=5e-3 * float(z.abs().max()))
+
+
+def _padded_dataset(dev, seed=0, cap=64, rows=40, n=3):
+    """A padded dataset with masked-out rows and exact duplicates, on
+    ``dev``: (Dataset, numpy X)."""
+    from nngparareal_torch.models import Dataset
+
+    rng = np.random.default_rng(seed)
+    X = np.zeros((cap, n))
+    D = np.zeros((cap, n))
+    X[:rows] = rng.standard_normal((rows, n))
+    D[:rows] = 1e-3 * rng.standard_normal((rows, n))
+    X[30:33] = X[12]
+    V = np.zeros(cap)
+    V[:rows] = 1.0
+    V[[5, 21]] = 0.0
+    return Dataset(*(torch.tensor(a, device=dev) for a in (X, D, V))), X
+
+
+def _predict(mdl, ds, q):
+    z = torch.zeros_like(q)
+    return mdl.predict_fn(ds, q, z, z, 0)
+
+
+def test_knn_mean_on_card_is_bitwise_the_cpu():
+    from nngparareal_torch.models import Dataset, KNNMean
+
+    dev = _card()
+    ds, X = _padded_dataset(dev)
+    cpu = Dataset(ds.X.cpu(), ds.D.cpu(), ds.valid.cpu())
+    for nn in (5, 15, 60):
+        mdl = KNNMean(3, 8, nn=nn)
+        for q in (X[12], X[5], X[0] + 1e-9):
+            q = torch.tensor(q)
+            assert torch.equal(_predict(mdl, ds, q.to(dev)).cpu(),
+                               _predict(mdl, cpu, q))
+
+
+def test_elm_on_card_within_the_cpu_control():
+    """The ELM's near-singular ridge solve (cuSOLVER on the card, LAPACK
+    on the CPU) against the CPU's own control: its dataset's X moved by
+    4e-16 (tests/test_torch_knn_elm.py)."""
+    from nngparareal_torch.models import ELM, Dataset
+
+    dev = _card()
+    ds, X = _padded_dataset(dev, seed=4)
+    cpu = Dataset(ds.X.cpu(), ds.D.cpu(), ds.valid.cpu())
+    mdl = ELM(3, 8, m=10, res_size=20)
+    moved = [Dataset(cpu.X * (1.0 + 4e-16 * torch.tensor(
+        np.random.default_rng(s).choice([-1.0, 1.0], X.shape))), cpu.D,
+        cpu.valid) for s in range(3)]
+    for q in (X[12], X[0] + 1e-3):
+        q = torch.tensor(q)
+        want = _predict(mdl, cpu, q)
+        got = _predict(mdl, ds, q.to(dev)).cpu()
+        ctl = max(float((_predict(mdl, m, q) - want).abs().max())
+                  for m in moved)
+        gap = float((got - want).abs().max())
+        assert gap <= 10.0 * max(ctl, 1e-15 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("strategy", ["col_only", "col+rnd", "row_col",
+                                      "row", "col_full"])
+def test_strategy_indices_on_card_are_the_cpu(strategy):
+    from nngparareal_torch.models import Dataset, NNGParareal
+
+    dev = _card()
+    ds, X = _padded_dataset(dev, cap=64, rows=48, n=2)
+    cpu = Dataset(ds.X.cpu(), ds.D.cpu(), ds.valid.cpu())
+    rand = np.round(np.random.default_rng(0).random((8, 64)), 1)
+    for k in (0, 2, 5):
+        mdl = NNGParareal(2, 8, nn=12, optimizer="grid", strategy=strategy)
+        mdl.fit(None, k)
+        for i in range(8):
+            q = torch.tensor(X[i])
+            got = mdl._select_neighbors(ds, q.to(dev), 12, i,
+                                        {"rand": torch.tensor(rand[i],
+                                                              device=dev)})
+            want = mdl._select_neighbors(cpu, q, 12, i,
+                                         {"rand": torch.tensor(rand[i])})
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b)
+
+
+def test_loo_and_lu_on_card_within_the_cpu_control():
+    """loo_lanes (the lane-major factor and solves; exp rounds otherwise on
+    the card) and the LU posterior (cuSOLVER's getrf against LAPACK's):
+    finite in the same places, and within 10x the CPU's own control, the
+    distances moved by 4e-16 (each entry up or down, three draws; ~3e-11
+    of the largest LOO score, ~1e-15 of the largest posterior on these
+    36 thetas x jitters 1e-12..1e-8)."""
+    from nngparareal_torch.ops import gp as gpops
+    from nngparareal_torch.ops import gp_lanes
+
+    dev = _card()
+    rng = np.random.default_rng(1)
+    X = torch.tensor(0.5 * rng.standard_normal((18, 4)))
+    sqd = gpops.pairwise_sq_dists(X, X)
+    sqd_q = gpops.sq_dists_to(X[0] + 1e-3, X)
+    ym = torch.tensor(rng.standard_normal((18, 4)))
+    mask = torch.ones(18, dtype=torch.float64)
+    mask[11] = 0.0
+    g = np.arange(-4.0, 2.0)
+    th = torch.tensor(np.stack(np.meshgrid(g, g), -1).reshape(-1, 2))
+    th = th.repeat_interleave(3, 0)
+    jit = torch.tensor([-12.0, -10.0, -8.0], dtype=torch.float64).repeat(36)
+    sel = torch.arange(0, 108, 27)
+    moved = [sqd * (1.0 + 4e-16 * torch.tensor(np.random.default_rng(
+        s).choice([-1.0, 1.0], sqd.shape))) for s in range(3)]
+    for fn, args in (
+            (gp_lanes.loo_lanes, lambda d: (d, ym, th, jit, mask)),
+            (gp_lanes.posterior_mean_lu,
+             lambda d: (d, sqd_q, ym, th[sel], jit[sel], mask))):
+        want = fn(*args(sqd))
+        got = fn(*(a.to(dev) for a in args(sqd))).cpu()
+        ok = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), ok) and ok.any()
+        ctl = max(float((fn(*args(d)) - want)[ok].abs().max())
+                  for d in moved)
+        assert float((got - want)[ok].abs().max()) <= 10.0 * max(
+            ctl, 1e-15 * float(want[ok].abs().max()))
+
+
+def test_nngp_time_graph_replay_is_bitwise_the_eager_prediction():
+    """One NNGPTime prediction with its searches replayed from CUDA graphs
+    and with eager launches: bitwise the same, every round."""
+    from nngparareal_torch.models import Dataset, NNGPTime
+
+    dev = _card()
+    ds, X = _padded_dataset(dev, cap=128, rows=100, n=3)
+    preds = []
+    for graphed in (True, False):
+        mdl = NNGPTime(3, 20, nn=10, reps=2, nn_iters=2, nm_max_iters=40)
+        mdl.fit(ds, 4)
+        aux = {k: torch.tensor(v[7], device=dev)
+               for k, v in mdl.sweep_aux(4, 20, 128).items()}
+        search = mdl._search
+        mdl._search = lambda x0, data, g=None: search(x0, data, graphed)
+        q = ds.X[13] + 1e-3
+        preds.append((_predict_i(mdl, ds, q, 7, aux), mdl.nm_stats))
+    (g, g_stats), (e, e_stats) = preds
+    assert torch.equal(g, e) and torch.isfinite(g).all()
+    assert g_stats["replays"] > 0 and e_stats["replays"] == 0
+    assert g_stats["iterations"] == e_stats["iterations"]
+
+
+def _predict_i(mdl, ds, q, i, aux):
+    z = torch.zeros_like(q)
+    return mdl.predict_fn(ds, q, z, z, i, aux_i=aux)
 
 
 def test_nm_graph_capture_that_reads_back_raises():

@@ -101,11 +101,15 @@ def test_predict_fn_matches_jax(frozen):
 
 
 def test_unported_search_modes_raise():
-    """Nelder-Mead, the JAX default, is ported; the LOO selector, the LU
-    posterior, reduced-precision scoring and the neighbour strategies are
-    refused, naming ROADMAP.md."""
+    """Nelder-Mead, the JAX default, is ported, and so are the LOO
+    selector, the LU posterior, reduced-precision scoring and the
+    neighbour strategies: each is taken as given (tests/test_torch_loo_lu
+    .py and tests/test_torch_strategies.py hold them against JAX); an
+    unknown value raises."""
     assert NNGParareal(n=2, N=4, nn=18, optimizer="nm").optimizer == "nm"
     for kw in (dict(selector="loo"), dict(posterior="lu"),
                dict(score_dtype=torch.float32), dict(strategy="row")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NNGParareal(n=2, N=4, nn=18, **kw)
+        mdl = NNGParareal(n=2, N=4, nn=18, **kw)
+        assert all(getattr(mdl, k) == v for k, v in kw.items())
+    with pytest.raises(ValueError, match="strategy"):
+        NNGParareal(n=2, N=4, nn=18, strategy="rows")

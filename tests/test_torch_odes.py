@@ -168,9 +168,12 @@ def test_make_system_refusals():
         tregistry.make_system("burgers_n", device="cpu")
     ot, _ = tregistry.make_system("fhn_pde_n", d_x=4, device="cpu")
     assert isinstance(ot, nt.FHNPDE)
-    # the JAX package has DiffReact; the port refuses it until it is ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tregistry.make_system("diffreact", d_x=4, device="cpu")
+    # DiffReact is ported (tests/test_torch_diffreact.py); like the PDEs
+    # it needs its grid width
+    with pytest.raises(TypeError, match="d_x"):
+        tregistry.make_system("diffreact", device="cpu")
+    ot, _ = tregistry.make_system("diffreact", d_x=4, device="cpu")
+    assert isinstance(ot, nt.DiffReact)
 
 
 # plain torch transcriptions of the kernel's raw ODE functors
