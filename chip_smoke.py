@@ -34,7 +34,14 @@ Phases, each printed as it ends with its seconds:
              (bench.py:90-121: N=128 over [0, 5.9], RK1 x4 / RK8 x40000
              per slice, m=18, grid search, seed 45, eps=5e-7) through
              experiments.run_burgers. It must converge with 10 <= K <= 14,
-             and the Burgers kernel must have run in it.
+             and the Burgers kernel must have run in it. Then the
+             reporting surface at that width: p.print_times() (its Fine
+             row times one 40 000-step RK8 solve over the whole span at
+             B=1 through the kernel, as the JAX package's does: no serial
+             fine time) and p.print_speedup() in Markdown and LaTeX, the
+             tables printed on lines of their own; p.store(slim=True) into
+             the log's directory, read back with read_pickle, its keys and K
+             checked; timings must name sweep_mode and sync_mode.
 5. fhn_pde   the second path: the FHN-PDE d-scaling run at dx=16 (d=512,
              N=512 over [0, 1100], RK4 x25 / RK8 x195 325 per slice,
              nnGP nn=20, grid search, seed 45, eps=5e-7) through
@@ -115,7 +122,27 @@ Phases, each printed as it ends with its seconds:
              each, with the LU and Cholesky shares of the 'lu' run's
              predictions. Each K is the JAX package's on the CPU; every
              conv_int is printed beside JAX's.
-11. serial    the runs' converged iterates against fine solves, slice by
+11. api      the driver's options and result surface on Table 2's FHN
+             (N=40) and Lorenz (N=50) at their published configurations,
+             each run's launches counted: bare Parareal and PararealLight
+             on FHN, K=11 both and the iterates bitwise equal; the bare run
+             again with store_int=True, int_name="api_fhn", early_stop=4,
+             resumed from its iteration-4 checkpoint with
+             load_int_dump(cstm_mdl_name="resumed"): K=11, the iterates
+             bitwise the full run's, the run kept as runs["resumed"]; the
+             nnGP (nn=15, grid) with lag_k=3, K in 5-7 (the JAX package
+             gives 6 on the CPU, 5 or 6 under its 4e-16 control, the port
+             7 on the CPU), conv_int printed beside JAX's; the nnGP at the
+             table2 phase's configuration with cap_iters=1,
+             sync_mode="fast" and calc_detail_avg=True: K=5 and the table2
+             phase's conv_int [1, 2, 5, 25, 40], a (K, 40) record of
+             interval walls, positive and finite on the intervals each
+             sweep predicted; Lorenz bare Parareal (K=15), then
+             build_cont_traj(): (50 (Nf + 1), 3), each slice's first row
+             its start u[i], its last row bitwise the plain torch fan-out
+             on the card and within 1e-12 of max|u| of the kernel's;
+             print_times and print_speedup on each Parareal object.
+12. serial    the runs' converged iterates against fine solves, slice by
              slice (atol 2e-5, as tests/test_parareal.py holds the JAX
              package): Burgers one slice after another from u0; FHN-PDE
              and each Table-2, figure2 and variants run (every search and
@@ -245,6 +272,20 @@ KNN_FHN = (39, list(range(1, 31)) + list(range(32, 41)))
 HOPF_VARIANT_K = 9
 HOPF_VARIANT_CONV_INT_CPU = [1, 2, 3, 4, 5, 6, 7, 26, 32]
 
+# the api phase: FHN bare Parareal (K as in TABLE2); the nnGP (nn=15, grid)
+# with lag_k=3: the band of the JAX package on the CPU (6; 5 or 6 under its
+# 4e-16 control) and of the port on the CPU (7; 5 or 6 under the same
+# control), with JAX's conv_int (tests/test_torch_driver_lag_k.py); the
+# nnGP at the table2 phase's FHN configuration, K and conv_int as that
+# phase gives them on the card; Lorenz bare Parareal
+API_LAG_K = (5, 7)
+API_LAG_CONV_INT_CPU = [1, 2, 3, 25, 38, 40]
+API_FHN_GRID = (5, [1, 2, 5, 25, 40])
+API_LORENZ_K = 15
+API_TRAJ_RTOL = 1e-12
+# the payload keys of Parareal.store, as the JAX package writes them
+STORE_KEYS = {"ode_name", "tspan", "N", "epsilon", "n", "runs", "fine_t"}
+
 # f64 operations of one field evaluation, per thread of the kernel (one
 # grid point of Burgers, one cell of FHN-PDE with both species, one slice
 # of an ODE), counted from csrc/rk_fanout.cu. An f64 sin or cos counts as
@@ -313,6 +354,8 @@ class Phases:
     def __init__(self, log):
         self.current = "start"
         self.log = log
+        # lines a phase hands over, printed after its own line
+        self.notes = []
 
     def emit(self, line):
         print(line, flush=True)
@@ -330,6 +373,9 @@ class Phases:
         torch.cuda.synchronize()
         secs = time.perf_counter() - tic
         self.emit(f"[{name}] {json.dumps(info)} {secs:.3f}s")
+        for line in self.notes:
+            self.emit(line)
+        self.notes.clear()
         return info
 
 
@@ -832,6 +878,42 @@ def phase_flagship(state):
         raise PhaseError(f"flagship: converged={out['converged']} K="
                          f"{out['k']}, expected convergence with K in "
                          f"{list(K_RANGE)}")
+    info.update(reporting_surface(state, "flagship", p, out))
+    return info
+
+
+def reporting_surface(state, name, p, out, store=True):
+    """print_times and print_speedup (Markdown, LaTeX) on a Parareal
+    object, the tables handed to the phase's notes; with ``store``, the
+    runs stored slim into LOG_DIR, read back and checked; timings must
+    name sweep_mode and sync_mode. Returns the Fine row's seconds and the
+    modes."""
+    from nngparareal_torch.utils.io import read_pickle
+
+    tm = out["timings"]
+    if "sweep_mode" not in tm or "sync_mode" not in tm:
+        raise PhaseError(f"{name}: timings lack sweep_mode/sync_mode")
+    tables = [p.print_times(), p.print_speedup(),
+              p.print_speedup(md=False, mdl_title=name)]
+    state["notes"].extend(f"[{name} table] {line}" for t in tables
+                          for line in t.splitlines())
+    info = {"print_times_fine_s": p.fine_t, "sweep_mode": tm["sweep_mode"],
+            "sync_mode": tm["sync_mode"]}
+    if store:
+        path = os.path.join(HERE, LOG_DIR)
+        fname = f"{name}_store.pkl"
+        p.store(fname, path=path, slim=True)
+        back = read_pickle(fname, path)
+        (key, run), = [(k, v) for k, v in p.runs.items() if v is out]
+        stored = back["runs"].get(key, {})
+        if (set(back) != STORE_KEYS or set(back["runs"]) != set(p.runs)
+                or stored.get("k") != out["k"] or "u" in stored
+                or back["fine_t"] != p.fine_t):
+            raise PhaseError(f"{name}: store(slim=True) read back as keys "
+                             f"{sorted(back)}, runs {sorted(back['runs'])}")
+        info["stored"] = {"file": os.path.join(LOG_DIR, fname),
+                          "keys": sorted(back), "run": key,
+                          "k": stored["k"]}
     return info
 
 
@@ -1371,9 +1453,9 @@ def fig2_log_errors(errs):
     return out
 
 
-def _system_parareal(name, dev, N=None):
-    """A Table-2 system's Parareal at its published configuration, the
-    kernel as its fine fan-out."""
+def _system_parareal(name, dev, N=None, cls=None):
+    """A Table-2 system's Parareal (or ``cls``) at its published
+    configuration, the kernel as its fine fan-out."""
     import nngparareal_torch as nt
 
     ode = getattr(nt, name)(normalization="-11", device=dev)
@@ -1381,8 +1463,8 @@ def _system_parareal(name, dev, N=None):
     solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
                          G=cfg["G"], F=cfg["F"],
                          device_field=ode.get_device_field(), device=dev)
-    return nt.Parareal(ode, solver, cfg["tspan"], cfg["N"], epsilon=5e-7,
-                       device=dev)
+    return (cls or nt.Parareal)(ode, solver, cfg["tspan"], cfg["N"],
+                                epsilon=5e-7, device=dev)
 
 
 def counted_run(state, field, path, p, **kw):
@@ -1618,6 +1700,145 @@ def time_full_config(dev, p, out):
             / 2**20}
 
 
+def phase_api(state):
+    """The driver's options and result surface on FHN and Lorenz (the api
+    phase of the module docstring)."""
+    import numpy as np
+    import torch
+    import nngparareal_torch as nt
+
+    dev = state["device"]
+    tic = time.perf_counter()
+    info, failures, launches = {}, [], {"fhn_ode": 0, "lorenz": 0}
+
+    def counted(field, p, **kw):
+        out, n, _ = counted_run(state, field, "api", p, **kw)
+        launches[field] += n
+        return out
+
+    def held(name, out, lo, hi, conv_int=None):
+        k = out["k"]
+        info[name] = {"K": k, "K_oracle": [lo, hi] if lo != hi else lo,
+                      "conv_int": out["conv_int"]}
+        if not out["converged"] or not lo <= k <= hi or (
+                conv_int is not None and out["conv_int"] != conv_int):
+            failures.append(f"{name}: converged={out['converged']} K={k} "
+                            f"conv_int={out['conv_int']}")
+
+    # 1. bare Parareal and PararealLight on FHN
+    bare_k = TABLE2["FHN_ODE"][1]
+    p_bare = _system_parareal("FHNODE", dev)
+    o_bare = counted("fhn_ode", p_bare, model="parareal")
+    held("fhn_parareal", o_bare, bare_k, bare_k)
+    p_light = _system_parareal("FHNODE", dev, cls=nt.PararealLight)
+    o_light = counted("fhn_ode", p_light, model="parareal")
+    held("fhn_parareal_light", o_light, bare_k, bare_k)
+    if not np.array_equal(o_light["u"], o_bare["u"]):
+        failures.append("PararealLight's iterates differ from Parareal's")
+
+    # 2. checkpoints under int_name, resumed with cstm_mdl_name
+    p_ck = _system_parareal("FHNODE", dev)
+    int_dir = os.path.join(HERE, LOG_DIR, "api_int")
+    counted("fhn_ode", p_ck, model="parareal", store_int=True,
+            int_name="api_fhn", early_stop=4, int_dir=int_dir)
+    zero_counts()
+    o_res = p_ck.load_int_dump(os.path.join(int_dir, "api_fhn", "api_fhn_3"),
+                               model="parareal", cstm_mdl_name="resumed")
+    torch.cuda.synchronize()
+    launches["fhn_ode"] += read_counts(state, "fhn_ode", "api")
+    held("fhn_resumed", o_res, bare_k, bare_k)
+    if not np.array_equal(o_res["u"], o_bare["u"]):
+        failures.append("the resumed run's iterates differ from the full "
+                        "run's")
+    if p_ck.runs.get("resumed") is not o_res:
+        failures.append(f"the resumed run is not runs['resumed']: "
+                        f"{sorted(p_ck.runs)}")
+
+    # 3. lag_k
+    p_lag = _system_parareal("FHNODE", dev)
+    o_lag = counted("fhn_ode", p_lag, model="nngp", nn=15, optimizer="grid",
+                    lag_k=3)
+    held("fhn_nngp_lag_k3", o_lag, *API_LAG_K)
+    info["fhn_nngp_lag_k3"]["conv_int_jax_cpu"] = API_LAG_CONV_INT_CPU
+
+    # 4. cap_iters=1, sync_mode='fast', calc_detail_avg
+    k_grid, conv_grid = API_FHN_GRID
+    table2_conv = [out["conv_int"] for name, _, out in state["table2"]
+                   if name == "FHN_ODE nngp"]
+    p_opt = _system_parareal("FHNODE", dev)
+    o_opt = counted("fhn_ode", p_opt, model="nngp", nn=15, optimizer="grid",
+                    cap_iters=1, sync_mode="fast", calc_detail_avg=True)
+    held("fhn_nngp_options", o_opt, k_grid, k_grid, conv_grid)
+    if table2_conv != [o_opt["conv_int"]]:
+        failures.append(f"the options changed conv_int: {o_opt['conv_int']}"
+                        f" against table2's {table2_conv}")
+    tm = o_opt["timings"]
+    detail = tm["calc_detail_avg"]
+    starts = [0] + o_opt["conv_int"][:-1]
+    swept = np.zeros((o_opt["k"], p_opt.N), dtype=bool)
+    for k, I in enumerate(starts):
+        swept[k, I + 1:] = True
+    if (detail is None or detail.shape != swept.shape
+            or not np.isfinite(detail).all()
+            or not (detail[swept] > 0).all() or detail[~swept].any()):
+        failures.append("calc_detail_avg: "
+                        f"{None if detail is None else detail.shape}")
+    info["fhn_nngp_options"].update(
+        sync_mode=tm["sync_mode"], fused_iter_s=tm["fused_iter_t"],
+        detail_shape=list(detail.shape) if detail is not None else None,
+        interval_ms_mean=1e3 * float(detail[swept].mean())
+        if detail is not None and swept.any() else None)
+
+    # 5. Lorenz and its continuous trajectory
+    p_lor = _system_parareal("Lorenz", dev)
+    o_lor = counted("lorenz", p_lor, model="parareal")
+    held("lorenz_parareal", o_lor, API_LORENZ_K, API_LORENZ_K)
+    torch.cuda.synchronize()
+    tt = time.perf_counter()
+    traj = p_lor.build_cont_traj()
+    traj_s = time.perf_counter() - tt
+    solver = p_lor.solver
+    nf, N = solver.Nf, p_lor.N
+    t, u = o_lor["t"], o_lor["u"]
+    plain = nt.RKSolver(solver.f, solver.Ng, nf, G=solver.G, F=solver.F,
+                        fine="torch", device=dev).run_F_batch(t[:-1], t[1:],
+                                                              u[:-1])
+    kernel = solver.run_F_batch(t[:-1], t[1:], u[:-1])
+    rows = traj.reshape(N, nf + 1, -1)
+    scale = float(np.abs(u).max())
+    kernel_gap = float(np.abs(rows[:, -1] - kernel.cpu().numpy()).max())
+    if traj.shape != (N * (nf + 1), p_lor.n):
+        failures.append(f"build_cont_traj shape {traj.shape}")
+    else:
+        if not np.array_equal(rows[:, 0], u[:-1]):
+            failures.append("build_cont_traj's first rows are not u[i]")
+        if not np.array_equal(rows[:, -1], plain.cpu().numpy()):
+            failures.append("build_cont_traj's last rows differ from the "
+                            "plain fan-out on the card")
+        if not kernel_gap <= API_TRAJ_RTOL * scale:
+            failures.append(f"build_cont_traj's last rows lie {kernel_gap:.3e}"
+                            f" from the kernel's fan-out")
+    info["lorenz_build_cont_traj"] = {
+        "shape": list(traj.shape), "s": traj_s,
+        "max_abs_err_vs_kernel": kernel_gap,
+        "max_rel_err_vs_kernel": kernel_gap / scale}
+
+    # 6. the tables of every Parareal object above
+    for name, p, out in (("fhn_parareal", p_bare, o_bare),
+                         ("fhn_parareal_light", p_light, o_light),
+                         ("fhn_resumed", p_ck, o_res),
+                         ("fhn_nngp_lag_k3", p_lag, o_lag),
+                         ("fhn_nngp_options", p_opt, o_opt),
+                         ("lorenz_parareal", p_lor, o_lor)):
+        info[name].update(reporting_surface(state, f"api {name}", p, out,
+                                            store=False))
+    if failures:
+        raise PhaseError("api: " + "; ".join(failures))
+    info["launches"] = launches
+    info["s"] = time.perf_counter() - tic
+    return info
+
+
 def phase_serial(state):
     import numpy as np
     import torch
@@ -1709,7 +1930,8 @@ def main():
 
     signal.signal(signal.SIGALRM, on_alarm)
     signal.alarm(DEADLINE_S)
-    state = {"device": torch.device("cuda", 0), "kernels": {}}
+    state = {"device": torch.device("cuda", 0), "kernels": {},
+             "notes": phases.notes}
     t_start = time.perf_counter()
     try:
         env = phases.run("env", phase_env)
@@ -1722,6 +1944,7 @@ def main():
         phases.run("table2_gp", phase_table2_gp, state)
         phases.run("figure2", phase_figure2, state)
         phases.run("variants", phase_variants, state)
+        phases.run("api", phase_api, state)
         phases.run("serial", phase_serial, state)
     except Exception as exc:  # report the phase, exit nonzero
         signal.alarm(0)

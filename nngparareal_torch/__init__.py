@@ -24,7 +24,7 @@ from nngparareal_torch.systems import (
 )
 from nngparareal_torch.systems.configs import Config
 from nngparareal_torch.solver import RKSolver, ScipySolver
-from nngparareal_torch.driver import Parareal
+from nngparareal_torch.driver import Parareal, PararealLight
 
 __all__ = [
     "ODE",
@@ -42,4 +42,5 @@ __all__ = [
     "RKSolver",
     "ScipySolver",
     "Parareal",
+    "PararealLight",
 ]

@@ -9,8 +9,9 @@ Port of ``nngparareal_tpu/driver.py:Parareal``. Each iteration does:
 3. **corrector sweep** ``u_{i+1} = model(u_i) + G(u_i)`` over the intervals
    [I, N): a host loop that queues each interval's coarse step and model
    prediction on the device without waiting for it. The card is waited
-   for once per iteration, at the convergence check (and, with the
-   Nelder-Mead search, after each of its graph replays).
+   for at the convergence check (and, with the Nelder-Mead search, after
+   each of its graph replays; in ``sync_mode="attrib"``, after the
+   fan-out).
 
 With ``debug`` (set by ``comp_models``) each iteration also integrates
 every slice from the new iterate with one fine fan-out (the truth), and
@@ -24,13 +25,48 @@ The convergence bookkeeping (prefix freeze, err columns, early stop, the
 finite guards and the iterate clipping) follows the JAX package exactly:
 its iterations-to-convergence K are the acceptance oracle.
 
-Left out: the JAX package's AOT/compile-cache machinery (torch has no
-compile step here), its power-of-two fan-out buckets (the kernel takes
-any batch, and frozen slices would recompute the same values), the 5e-9
-``host_cpu`` router (the H100 has IEEE f64) and the routing of the
-time-augmented nnGP's sweep to the CPU (a workaround for a TPU toolchain
-fault; on a card it runs on the card), mesh sharding, and the options no
-caller here sets.
+The loop takes the JAX package's options, with its defaults: ``cap_iters``
+(the dataset's first capacity, in iterations), ``lag_k`` (the fit and the
+sweep see only the rows of the last ``lag_k`` iterations, the dataset
+keeps growing), ``clip_iterates``, ``int_name`` (the checkpoints'
+directory and file names), a per-run ``verbose``, ``warmup``,
+``sweep_mode`` and ``sync_mode``. Three of them map onto the port's one
+sweep:
+
+* ``sweep_mode`` ("auto", "scan", "host", "python"): the port has one
+  sweep, a host loop that queues each interval's coarse step and
+  prediction on the device (the JAX package's "host" sweep, un-jitted as
+  its "python" one), whatever is asked; ``timings["sweep_mode"]`` records
+  "host". The JAX package's "host_cpu" (the 5e-9 precision router that
+  moves the sweep to the CPU's IEEE f64) is refused: the card's f64 is
+  IEEE already.
+* ``sync_mode``: "attrib" waits for the card after the fan-out and at the
+  convergence check, so the fine, sweep and model times are each their
+  own; "fast" drops the fan-out's wait and books the iteration's wall in
+  ``fused_iter_t`` (the fine time then holds the launch alone), as the
+  JAX package does; ``debug`` keeps "attrib". ``timings["sync_mode"]``
+  records which ran.
+* ``warmup``: the port builds one thing before the timed loop, the fine
+  kernel (``solver.prepare()``), and always outside the timed region; the
+  flag changes nothing.
+
+With the nnGP's ``calc_detail_avg`` the sweep waits for the card after
+each interval and records its wall (``timings["calc_detail_avg"]``).
+
+``Parareal`` also keeps the JAX package's result surface: ``store``,
+``build_cont_traj`` (every slice's fine trajectory, integrated as one
+batch), ``clear_plot_obj`` and the reporting delegates ``print_times``,
+``print_speedup``, ``plot`` and ``plot_all_err`` (reporting.py).
+``PararealLight`` keeps no history and refuses checkpoints, as the JAX
+package's does.
+
+Left out: ``mesh=`` (multi-GPU slice sharding; it raises), the JAX
+package's process ``pool=`` of its experiment drivers, the "host_cpu"
+sweep (above), its AOT/compile-cache machinery (torch has no compile step
+here; its power-of-two fan-out buckets with it: the kernel takes any
+batch), the routing of the time-augmented nnGP's sweep to the CPU (a
+workaround for a TPU toolchain fault) and the double-single fine path
+(``fine='ds'``).
 """
 
 import os
@@ -49,13 +85,13 @@ from nngparareal_torch.models.base import ModelBase
 from nngparareal_torch.solver import SolverAbstr
 from nngparareal_torch.systems.base import ODE
 from nngparareal_torch.utils.device import resolve_device
-from nngparareal_torch.utils.timing import wall_timed
+from nngparareal_torch.utils.timing import _block, wall_timed
 
 # run() keywords that configure each model; the union is taken out of
 # run()'s keywords, each model gets its own, and the rest go to the loop
 _NNGP_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol", "nm_max_iters",
               "optimizer", "posterior", "grid_refine", "grid_walk",
-              "grid_polish", "score_dtype", "strategy")
+              "grid_polish", "score_dtype", "strategy", "calc_detail_avg")
 _GP_KEYS = ("theta", "seed", "fatol", "xatol", "nm_max_iters", "optimizer",
             "score_dtype", "grid_chunk", "grid_task_chunk", "grid_logs",
             "alpha_res_tol", "fit_rows_cap", "score_rows_cap")
@@ -79,6 +115,10 @@ _MODELS = (
     (("elm",), ELM, _ELM_KEYS, {"seed": 47}),
 )
 MODEL_NAMES = tuple(name for names, *_ in _MODELS for name in names)
+SWEEP_MODES = ("auto", "scan", "host", "python")
+SYNC_MODES = ("attrib", "fast")
+# a run's verbose, when it is not given: the instance's
+_OWN = object()
 
 
 def _aux_to(aux, dev):
@@ -124,9 +164,14 @@ class Parareal:
         self.verbose = verbose
         self.ode_name = ode.name
         self.n = ode.get_dim()
+        self.f = ode.get_vector_field()
         self.u0 = ode.get_init_cond()
         # each run's output by its model's name (or ``cstm_mdl_name``)
         self.runs = {}
+        # the fine solve over the whole span and its seconds, filled in by
+        # print_times
+        self.fine = None
+        self.fine_t = None
 
     # ------------------------------------------------------------------
     # public API
@@ -139,13 +184,14 @@ class Parareal:
         debug_dict, converged, conv_int (and u_hist with
         ``keep_history``; the model as ``mdl`` with ``add_model``). The
         result is also kept in ``self.runs`` under ``cstm_mdl_name`` or
-        the model's name."""
+        the model's name. A run's ``verbose`` holds for this line too
+        (the JAX package's run() prints it by the instance's)."""
         mdl = self._make_model(model, kwargs)
         s_time = time.perf_counter()
         out = self._parareal(mdl, **kwargs)
         out["timings"]["total_wall"] = time.perf_counter() - s_time
         out["timings"]["runtime"] = out["timings"]["core_t"]
-        if self.verbose == "v":
+        if kwargs.get("verbose", self.verbose) == "v":
             print(f"Elapsed Parareal time: {out['timings']['runtime']:0.2f}s")
         if add_model:
             out["mdl"] = mdl
@@ -195,8 +241,12 @@ class Parareal:
         i of ``aux`` (the iteration's draw, already on the device). Every op
         is queued on the device; nothing here reads a value back to the
         host, apart from what the model reads itself (the Nelder-Mead
-        search's convergence checks).
+        search's convergence checks) and, with the model's
+        ``calc_detail_avg``, a wait for the card after each interval to
+        record its wall.
         """
+        record = (model.record_interval_time
+                  if getattr(model, "calc_detail_avg", False) else None)
         solver = self.solver
         N = self.N
         t0_glob = self.tspan[0]
@@ -204,6 +254,7 @@ class Parareal:
         u_rows = [u_init[i] for i in range(I + 1)]
         uG_rows = [uG_init[i] for i in range(I + 1)]
         for i in range(I, N):
+            tic = time.perf_counter()
             u_i = u_rows[i]
             uF_ip1, uG_ip1 = uF[i + 1], uG[i + 1]
             uGn = solver.coarse_step_raw(t0_glob + i * dt_slice, dt_slice, u_i)
@@ -220,6 +271,9 @@ class Parareal:
             uGn = torch.where(torch.isfinite(uGn), uGn, uF_ip1 - pred)
             if clip is not None:
                 u_ip1 = torch.clamp(u_ip1, clip[0], clip[1])
+            if record is not None:
+                _block(u_ip1)
+                record(i, time.perf_counter() - tic)
             u_rows.append(u_ip1)
             uG_rows.append(uGn)
         u_next = torch.stack(u_rows)
@@ -232,6 +286,17 @@ class Parareal:
     # the main loop
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def _windowed_valid(valid, N, k, I, lag_k):
+        """The lag_k training window: keep only the rows of iterations
+        [k+1-lag_k, k] whose slice is >= I (row kk*N + i holds slice i of
+        iteration kk)."""
+        idx = torch.arange(valid.shape[0], device=valid.device)
+        kk = idx // N
+        keep = ((kk >= max(k + 1 - lag_k, 0)) & (kk <= k)
+                & (idx % N >= I))
+        return valid * keep.to(valid.dtype)
+
     @torch.inference_mode()
     def _parareal(
         self,
@@ -239,14 +304,38 @@ class Parareal:
         early_stop=None,
         store_int=False,
         keep_history=False,
-        measure_serial_fine=True,
         debug=False,
+        cap_iters=None,
+        mesh=None,
+        warmup=True,
+        measure_serial_fine=True,
+        lag_k=None,
+        sweep_mode="auto",
+        sync_mode="attrib",
+        clip_iterates=True,
         comp_models=None,
         int_dir="",
+        int_name=None,
+        verbose=_OWN,
         _resume=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (multi-GPU slice sharding) is not ported yet "
+                "(ROADMAP.md, modules still to port)")
+        if sweep_mode == "host_cpu":
+            raise ValueError(
+                "sweep_mode='host_cpu' moves the JAX package's sweep to the "
+                "CPU's IEEE f64 because the TPU's f64 is emulated; the "
+                "card's f64 is IEEE, so the port has no such route")
+        if sweep_mode not in SWEEP_MODES:
+            raise ValueError(f"sweep_mode={sweep_mode!r}; known: "
+                             f"{list(SWEEP_MODES)}")
+        if sync_mode not in SYNC_MODES:
+            raise ValueError(f"sync_mode={sync_mode!r}; known: "
+                             f"{list(SYNC_MODES)}")
         N, n, eps = self.N, self.n, self.epsilon
-        verbose = self.verbose
+        verbose = self.verbose if verbose is _OWN else verbose
         solver = self.solver
         dev = self.device
         t_np = np.linspace(self.tspan[0], self.tspan[1], N + 1)
@@ -254,21 +343,26 @@ class Parareal:
 
         shadows = self._shadows(comp_models or ())
         debug = debug or bool(shadows)
+        # 'fast': the fan-out is not waited for; the iteration's one wait
+        # is the convergence check's
+        fast_sync = sync_mode == "fast" and not debug
         shadow_errs = {name: [] for name, _ in shadows}
         mean_errs, max_errs, one_step_error, all_pred_err = [], [], [], []
         collect_data = model.needs_dataset or bool(shadows)
-        cap0 = N * min(N, 32)
+        cap0 = N * max(1, min(N, 32 if cap_iters is None else int(cap_iters)))
         ds = Dataset.empty(cap0 if collect_data else N, n, device=dev)
         u0 = self.u0
 
         # trajectory-informed iterate bounds: the coarse-init range with a
         # 3x margin (garbage iterates far outside it would blow up both
         # solvers)
-        uG_probe = solver.run_G_chain(t, u0)
-        lo = torch.amin(uG_probe, dim=0)
-        hi = torch.amax(uG_probe, dim=0)
-        rng_ = torch.clamp(hi - lo, min=1e-6)
-        clip = (lo - 3.0 * rng_, hi + 3.0 * rng_)
+        clip = None
+        if clip_iterates:
+            uG_probe = solver.run_G_chain(t, u0)
+            lo = torch.amin(uG_probe, dim=0)
+            hi = torch.amax(uG_probe, dim=0)
+            rng_ = torch.clamp(hi - lo, min=1e-6)
+            clip = (lo - 3.0 * rng_, hi + 3.0 * rng_)
 
         # build the fine kernel outside the timed loop
         _, warmup_t = wall_timed(solver.prepare)()
@@ -278,6 +372,7 @@ class Parareal:
         F_time = 0.0
         F_time_serial = 0.0
         sweep_time = 0.0
+        fused_iter_t = 0.0
 
         # --- coarse init chain ---
         uG, g_chain_t = wall_timed(solver.run_G_chain)(t, u0)
@@ -308,9 +403,15 @@ class Parareal:
                       f"(out of {N}): {k + 1} ")
 
             # --- 1. fine fan-out over the unconverged slices [I, N) ---
-            sub, dt_fine = wall_timed(solver.run_F_batch)(
-                t[I:N], t[I + 1:N + 1], u[I:N])
-            F_time += dt_fine
+            if fast_sync and measure_serial_fine and per_slice_fine_t is None:
+                # before the fan-out, or its waits would land in the
+                # iteration's wall
+                per_slice_fine_t = self._measure_serial_fine(t_np, u[0])
+            iter_tic = time.perf_counter()
+            sub = solver.run_F_batch(t[I:N], t[I + 1:N + 1], u[I:N])
+            if not fast_sync:
+                _block(sub)
+            F_time += time.perf_counter() - iter_tic
             uF[I + 1:N + 1] = sub
 
             if measure_serial_fine and per_slice_fine_t is None:
@@ -344,9 +445,13 @@ class Parareal:
                     hist_u.append(u.cpu().numpy())
                 break
 
-            # --- 3. model fit ---
+            # --- 3. model fit, on the lag_k window when one is set ---
+            ds_fit = ds
+            if lag_k is not None and collect_data:
+                ds_fit = Dataset(ds.X, ds.D, self._windowed_valid(
+                    ds.valid, N, k, I, int(lag_k)))
             tic = time.perf_counter()
-            model.fit(ds, k)
+            model.fit(ds_fit, k)
             model.add_train_time(k, time.perf_counter() - tic)
 
             # --- 4. corrector sweep ---
@@ -355,17 +460,21 @@ class Parareal:
             aux = _aux_to(model.sweep_aux(k, N, ds.capacity), dev)
             tic = time.perf_counter()
             u_next, uG_next, err_dev = self._sweep(
-                model, ds, I, u_init, uG_init, uF, uG, u, clip, aux)
-            # the iteration's one wait on the device: err goes to the host
+                model, ds_fit, I, u_init, uG_init, uF, uG, u, clip, aux)
+            # the wait at the convergence check: err goes to the host
             err = err_dev.cpu().numpy()
             dt_sweep = time.perf_counter() - tic
-            sweep_time += dt_sweep
-            # attribute the sweep wall between the coarse chain and the
-            # model: estimate G from the measured init chain, prorated by
-            # the active-slice fraction
-            g_est = g_chain_t * (N - I) / N
-            G_time += g_est
-            model.add_pred_time(k, max(0.0, dt_sweep - g_est), n_active=N - I)
+            if fast_sync:
+                fused_iter_t += time.perf_counter() - iter_tic
+            else:
+                sweep_time += dt_sweep
+                # attribute the sweep wall between the coarse chain and the
+                # model: estimate G from the measured init chain, prorated
+                # by the active-slice fraction
+                g_est = g_chain_t * (N - I) / N
+                G_time += g_est
+                model.add_pred_time(k, max(0.0, dt_sweep - g_est),
+                                    n_active=N - I)
 
             # --- debug: the predictions' errors against the truth ---
             if debug:
@@ -378,7 +487,7 @@ class Parareal:
                           f"{pe.max(axis=0)}")
                 for name, mdl in shadows:
                     shadow_errs[name].append(self._shadow_errors(
-                        mdl, ds, k, I, u_next, uF, uG, uG_next, truth))
+                        mdl, ds_fit, k, I, u_next, uF, uG, uG_next, truth))
 
             # --- 5. convergence check + prefix freeze ---
             if np.isnan(err).any():
@@ -407,6 +516,7 @@ class Parareal:
                 self._store_int(
                     model, k, I, u, uG, uF, err_cols, conv_int, ds,
                     G_time, F_time, F_time_serial, sweep_time, int_dir,
+                    int_name,
                 )
 
             if I == N:
@@ -436,16 +546,27 @@ class Parareal:
             "F_time_serial_avg": F_time_serial,
             # one-time kernel build
             "warmup_t": warmup_t,
+            "warmup_split": {"fine_build": warmup_t},
             # wall clock of the solve proper: coarse init + k-loop,
             # excluding the one-off serial-fine measurement
             "core_t": time.perf_counter() - core_t0 - (per_slice_fine_t or 0.0),
+            # 'attrib': the fan-out and the sweep waited for, each split its
+            # own; 'fast': one wait an iteration, its wall in fused_iter_t
+            "sync_mode": "fast" if fast_sync else "attrib",
+            "fused_iter_t": fused_iter_t,
+            # the port's one sweep, whatever sweep_mode asked (see above)
+            "sweep_mode": "host",
         }
         timings.update(model.get_times())
-        timings["overhead_t"] = max(
-            0.0,
-            timings["core_t"] - F_time - g_chain_t - sweep_time
-            - timings["mdl_train_t"],
-        )
+        if fast_sync:
+            timings["overhead_t"] = max(
+                0.0, timings["core_t"] - g_chain_t - fused_iter_t)
+        else:
+            timings["overhead_t"] = max(
+                0.0,
+                timings["core_t"] - F_time - g_chain_t - sweep_time
+                - timings["mdl_train_t"],
+            )
 
         debug_dict = {}
         if debug:
@@ -507,9 +628,9 @@ class Parareal:
 
     def _store_int(
         self, model, k, I, u, uG, uF, err_cols, conv_int, ds,
-        G_time, F_time, F_time_serial, sweep_time, int_dir,
+        G_time, F_time, F_time_serial, sweep_time, int_dir="", int_name=None,
     ):
-        name_base = f"{self.ode_name}_{self.N}_{model.name}_int"
+        name_base = int_name or f"{self.ode_name}_{self.N}_{model.name}_int"
         path = os.path.join(int_dir, name_base)
         os.makedirs(path, exist_ok=True)
         payload = {
@@ -537,9 +658,13 @@ class Parareal:
         with open(os.path.join(path, f"{name_base}_{k}"), "wb") as fh:
             pickle.dump(payload, fh, pickle.HIGHEST_PROTOCOL)
 
-    def load_int_dump(self, ckpt_path, model="parareal", **kwargs):
+    def load_int_dump(self, ckpt_path, model="parareal", cstm_mdl_name=None,
+                      **kwargs):
         """Resume a run from a per-iteration checkpoint file, written by
-        this package or by the JAX package."""
+        this package or by the JAX package. ``model`` is a model's name
+        (built with the run's keywords) or a model instance, taken as it
+        is. The resumed run is returned and kept in ``self.runs`` under
+        ``cstm_mdl_name`` or the model's name, as ``run`` keeps it."""
         p = from_jax_checkpoint(load_checkpoint(ckpt_path), device=self.device)
         if p["ode_name"] != self.ode_name or p["N"] != self.N:
             raise Exception("Checkpoint does not match this Parareal instance")
@@ -559,4 +684,94 @@ class Parareal:
         s_time = time.perf_counter()
         out = self._parareal(mdl, _resume=resume, **kwargs)
         out["timings"]["runtime"] = time.perf_counter() - s_time + base_time
+        self.runs[mdl.name if cstm_mdl_name is None else cstm_mdl_name] = out
         return out
+
+    # ------------------------------------------------------------------
+    # results: trajectories, artifacts, reporting (reporting.py)
+    # ------------------------------------------------------------------
+
+    def build_cont_traj(self, key=None):
+        """Every slice's fine trajectory from a run's iterates, stacked:
+        (N * (Nf + 1), d) as a numpy array, slice i's rows starting at u[i].
+        ``key``: None (the one stored run), a run's name, or a dict with
+        ``t`` and ``u``. The N slices are integrated as one batch
+        (``solver.run_F_full`` with (N, 1) bounds), each slice's rows
+        equal to its own one-slice trajectory."""
+        if key is None:
+            if len(self.runs) != 1:
+                raise Exception("Multiple runs, must specify key")
+            key = list(self.runs.keys())[0]
+        if isinstance(key, dict) and "t" in key and "u" in key:
+            t, u = key["t"], key["u"]
+        else:
+            t, u = self.runs[key]["t"], self.runs[key]["u"]
+        t = torch.as_tensor(np.asarray(t), dtype=torch.float64,
+                            device=self.device)
+        u = torch.as_tensor(np.asarray(u), dtype=torch.float64,
+                            device=self.device)
+        N = self.N
+        with torch.inference_mode():
+            traj = self.solver.run_F_full(t[:N, None], t[1:N + 1, None], u[:N])
+        return traj.transpose(0, 1).reshape(-1, traj.shape[-1]).cpu().numpy()
+
+    def store(self, name, path="", slim=False):
+        """Pickle this solver's runs (numpy data) with the run's identity
+        and ``fine_t`` under ``path/name``; ``slim`` drops each run's bulky
+        arrays (``utils/io.py:slim_run``). Returns the payload."""
+        from nngparareal_torch.utils.io import slim_run, store_pickle
+
+        runs = {k: (slim_run(v) if slim else v) for k, v in self.runs.items()}
+        payload = {
+            "ode_name": self.ode_name,
+            "tspan": self.tspan,
+            "N": self.N,
+            "epsilon": self.epsilon,
+            "n": self.n,
+            "runs": runs,
+            "fine_t": self.fine_t,
+        }
+        store_pickle(payload, name, path)
+        return payload
+
+    def clear_plot_obj(self):
+        self.runs = {}
+
+    def print_times(self, *args, **kwargs):
+        from nngparareal_torch.reporting import print_times
+
+        return print_times(self, *args, **kwargs)
+
+    def print_speedup(self, *args, **kwargs):
+        from nngparareal_torch.reporting import print_speedup
+
+        return print_speedup(self, *args, **kwargs)
+
+    def plot(self, *args, **kwargs):
+        from nngparareal_torch.reporting import plot_run
+
+        return plot_run(self, *args, **kwargs)
+
+    def plot_all_err(self, *args, **kwargs):
+        from nngparareal_torch.reporting import plot_all_err
+
+        return plot_all_err(self, *args, **kwargs)
+
+
+class PararealLight(Parareal):
+    """``Parareal`` without history and checkpoints, as the JAX package's
+    (its state is already O(N n)): ``keep_history`` is forced off, and
+    ``store_int`` and ``load_int_dump`` raise."""
+
+    def _parareal(self, model, **kwargs):
+        kwargs["keep_history"] = False
+        if kwargs.get("store_int"):
+            raise NotImplementedError(
+                "PararealLight does not support storing intermediate results"
+            )
+        return super()._parareal(model, **kwargs)
+
+    def load_int_dump(self, *args, **kwargs):
+        raise NotImplementedError(
+            "PararealLight does not support loading from intermediate dumps"
+        )

@@ -97,6 +97,7 @@ class NNGParareal(ModelBase):
         loo_top=12,
         loo_window=3.0,
         posterior="chol",
+        calc_detail_avg=False,
     ):
         super().__init__(n, N)
         for key, val, known in (("optimizer", optimizer, ("nm", "grid")),
@@ -133,6 +134,13 @@ class NNGParareal(ModelBase):
         self.grid_walk = int(grid_walk)
         self.grid_polish = int(grid_polish)
         self.k = 0
+        # per-(iteration, interval) prediction walls: with the flag set the
+        # driver's sweep waits for the card after each interval and hands
+        # its wall to record_interval_time
+        self.calc_detail_avg = bool(calc_detail_avg)
+        self.detail_avg = np.zeros((N, N)) if self.calc_detail_avg else None
+        self.tot_train_t = 0.0
+        self.train_count = 0
         # the task order (coord, jitter, restart), coord-major
         n_rest = self.n_restarts if self.optimizer == "nm" else 1
         self.per = 9 * n_rest  # tasks per coordinate
@@ -181,16 +189,38 @@ class NNGParareal(ModelBase):
             aux["theta0"] = theta0
         return aux
 
+    def record_interval_time(self, i, seconds):
+        """One interval's measured wall (the sweep calls it with
+        ``calc_detail_avg``)."""
+        self.tot_train_t += seconds
+        self.train_count += 1
+        if self.calc_detail_avg and self.k < self.N and i < self.N:
+            self.detail_avg[self.k, i] = seconds
+
     def get_times(self):
         out = super().get_times()
-        # per-interval wall time is not attributable without a host sync
-        # per interval: estimate it from the aggregate model share of each
-        # sweep over that iteration's active interval count
-        tot_act = float(self.active_counts[: self.k + 1].sum())
-        out.update(
-            serial_train_time=self.pred_time,
-            avg_serial_train_time=self.pred_time / tot_act if tot_act else 0.0,
-        )
+        if self.train_count:
+            # measured interval by interval (calc_detail_avg)
+            out.update(
+                serial_train_time=self.tot_train_t,
+                avg_serial_train_time=self.tot_train_t / self.train_count,
+                calc_detail_avg=self.detail_avg[: self.k + 1],
+            )
+        else:
+            # per-interval wall time is not attributable without a wait
+            # per interval: estimate it from the aggregate model share of
+            # each sweep over that iteration's active interval count
+            tot_act = float(self.active_counts[: self.k + 1].sum())
+            out.update(
+                serial_train_time=self.pred_time,
+                avg_serial_train_time=(self.pred_time / tot_act if tot_act
+                                       else 0.0),
+                calc_detail_avg=None,
+                timing_detail_note=(
+                    "serial_train_time/avg_serial_train_time are estimates "
+                    "(aggregate sweep model time / active-interval counts); "
+                    "per-(k,i) detail requires calc_detail_avg=True"),
+            )
         if self.optimizer == "nm":
             out.update(nm_iterations=list(self.nm_stats["iterations"]),
                        nm_graph_replays=self.nm_stats["replays"])

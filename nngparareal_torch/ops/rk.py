@@ -12,9 +12,16 @@ fan-out kernel (ops/rk_cuda.py): the CPU runs and the tests use it, and on
 the card it serves only to check the kernel. The TPU lane-packing layouts
 of the JAX fan-out have no counterpart here.
 
+The trajectory functions (``integrate_traj``, ``integrate_traj_times``,
+``make_traj_integrator``) keep every step's state; the JAX package runs
+them as a ``lax.scan``, and here they are the same steps as torch ops on
+any device (no kernel holds a trajectory).
+
 Huge step counts are paged in chunks of ``thresh`` steps, as in the JAX
 package; in eager torch paging only splits the loop, it changes no value.
 """
+
+import torch
 
 from nngparareal_torch.ops.butcher import get_tableau
 
@@ -65,6 +72,35 @@ def integrate_last(f, tableau, t0, dt, steps, u0):
     return u
 
 
+def integrate_traj(f, tableau, t0, dt, steps, u0):
+    """Integrate ``steps`` fixed RK steps from (t0, u0) and return every
+    state, (steps+1, d) with row 0 equal to ``u0``; with (B, 1) ``t0`` and
+    ``dt`` and a (B, d) ``u0``, (steps+1, B, d)."""
+    tab = get_tableau(tableau)
+    coefs = stage_coefficients(tab, dt)
+    rows = [u0]
+    u = u0
+    for n in range(int(steps)):
+        u = rk_step(f, tab, t0 + n * dt, u, dt, coefs)
+        rows.append(u)
+    return torch.stack(rows)
+
+
+def integrate_traj_times(f, tableau, t, u0):
+    """The trajectory on an arbitrary (possibly non-uniform) grid ``t``
+    (a sequence, an array or a 1-d tensor, read to the host once): one
+    step from each t[n] to t[n+1]; (len(t), d) with row 0 equal to
+    ``u0``."""
+    tab = get_tableau(tableau)
+    t = torch.as_tensor(t, dtype=torch.float64).tolist()
+    rows = [u0]
+    u = u0
+    for t_n, t_np1 in zip(t[:-1], t[1:]):
+        u = rk_step(f, tab, t_n, u, t_np1 - t_n)
+        rows.append(u)
+    return torch.stack(rows)
+
+
 def make_last_integrator(f, tableau, steps, thresh=int(1e7)):
     """Build ``step_fn(t0, t1, u0) -> u(t1)`` doing ``steps`` RK steps,
     paged in chunks of at most ``thresh`` steps."""
@@ -83,6 +119,20 @@ def make_last_integrator(f, tableau, steps, thresh=int(1e7)):
         if rem:
             u = integrate_last(f, tab, t0 + (n_full * thresh) * dt, dt, rem, u)
         return u
+
+    return run
+
+
+def make_traj_integrator(f, tableau, steps):
+    """Build ``traj_fn(t0, t1, u0) -> (steps+1, d)``: the trajectory of
+    ``steps`` RK steps of width (t1 - t0) / steps (no paging, as in the
+    JAX package). Batched as ``integrate_traj`` is."""
+    tab = get_tableau(tableau)
+    steps = int(steps)
+
+    def run(t0, t1, u0):
+        dt = (t1 - t0) / steps
+        return integrate_traj(f, tab, t0, dt, steps, u0)
 
     return run
 

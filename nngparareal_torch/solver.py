@@ -6,7 +6,9 @@ Port of ``nngparareal_tpu/solver.py:RKSolver``:
 * ``run_F_batch`` integrates all slices at once: the fine fan-out;
 * ``run_G_chain`` runs the sequential coarse initialisation over all slices;
 * ``coarse_step_raw`` is the coarse solve the corrector sweep calls for
-  each interval.
+  each interval, ``fine_step_raw`` its fine twin;
+* ``run_F_full`` / ``run_G_full`` return a slice's whole trajectory, and
+  the ``*_timed`` methods return (result, seconds).
 
 ``ScipySolver`` is the host validation path: an adaptive scipy fine solve
 per slice, the coarse side delegated to an ``RKSolver``.
@@ -27,10 +29,12 @@ from nngparareal_torch.ops.rk import (
     integrate_last,
     make_batched_last_integrator,
     make_last_integrator,
+    make_traj_integrator,
 )
 from nngparareal_torch.ops import rk_cuda
 from nngparareal_torch.systems.base import numpy_field
 from nngparareal_torch.utils.device import resolve_device
+from nngparareal_torch.utils.timing import wall_timed
 
 
 class SolverAbstr:
@@ -39,6 +43,24 @@ class SolverAbstr:
 
     def run_G(self, t0, t1, u0):
         raise NotImplementedError
+
+    def run_F_full(self, t0, t1, u0):
+        raise NotImplementedError
+
+    def run_G_full(self, t0, t1, u0):
+        raise NotImplementedError
+
+    def run_F_timed(self, t0, t1, u0):
+        return wall_timed(self.run_F)(t0, t1, u0)
+
+    def run_G_timed(self, t0, t1, u0):
+        return wall_timed(self.run_G)(t0, t1, u0)
+
+    def run_F_full_timed(self, t0, t1, u0):
+        return wall_timed(self.run_F_full)(t0, t1, u0)
+
+    def run_G_full_timed(self, t0, t1, u0):
+        return wall_timed(self.run_G_full)(t0, t1, u0)
 
 
 def select_fine_mode(device, has_device_field):
@@ -92,6 +114,8 @@ class RKSolver(SolverAbstr):
         self._fine_last = make_last_integrator(f, self.F, self.Nf, self.thresh)
         self._fine_plain = make_batched_last_integrator(f, self.F, self.Nf,
                                                         self.thresh)
+        self._fine_traj = make_traj_integrator(f, self.F, self.Nf)
+        self._coarse_traj = make_traj_integrator(f, self.G, self.Ng)
 
     def prepare(self):
         """Build the fine kernel now (outside any timed region)."""
@@ -111,6 +135,26 @@ class RKSolver(SolverAbstr):
 
     def run_G(self, t0, t1, u0):
         return self._coarse_last(t0, t1, self._t(u0))
+
+    def run_F_full(self, t0, t1, u0):
+        """The fine trajectory of one slice, (Nf+1, d), as torch ops on the
+        solver's device (the kernel keeps no trajectory); with (B, 1) t0
+        and t1 and a (B, d) u0, (Nf+1, B, d). The bounds become tensors on
+        the device first, so that the step width is divided there, as the
+        batched fan-out divides it."""
+        return self._fine_traj(self._t(t0), self._t(t1), self._t(u0))
+
+    def run_G_full(self, t0, t1, u0):
+        """The coarse trajectory, (Ng+1, d), as ``run_F_full``."""
+        return self._coarse_traj(self._t(t0), self._t(t1), self._t(u0))
+
+    def fine_step_raw(self, t0, dt_slice, u0):
+        """One-slice fine solve as torch ops: the f64 branch of the JAX
+        package's ``fine_step_raw``. Its double-single branch (``fine='ds'``
+        and the Pallas kernel's arithmetic) is not ported yet (ROADMAP.md,
+        modules still to port)."""
+        dt = dt_slice / self.Nf
+        return integrate_last(self.f, self.F, t0, dt, self.Nf, u0)
 
     # --- batched API ---
 
@@ -215,3 +259,6 @@ class ScipySolver(SolverAbstr):
 
     def coarse_step_raw(self, t0, dt_slice, u0):
         return self.rk.coarse_step_raw(t0, dt_slice, u0)
+
+    def fine_step_raw(self, t0, dt_slice, u0):
+        return self.rk.fine_step_raw(t0, dt_slice, u0)

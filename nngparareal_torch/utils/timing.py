@@ -1,8 +1,8 @@
 """Wall-clock timing.
 
 Port of ``nngparareal_tpu/utils/timing.py``. CUDA work is queued
-asynchronously, so ``wall_timed`` waits for every card that holds a
-tensor of the result before it reads the clock.
+asynchronously, so ``wall_timed`` and ``Timer.time`` wait for every card
+that holds a tensor of the result before they read the clock.
 """
 
 import time
@@ -28,3 +28,21 @@ def wall_timed(fn):
         return out, time.perf_counter() - t0
 
     return wrapper
+
+
+class Timer:
+    """Accumulating named wall-clock timer."""
+
+    def __init__(self):
+        self.totals = {}
+
+    def add(self, name, seconds):
+        self.totals[name] = self.totals.get(name, 0.0) + seconds
+
+    def time(self, name, fn, *args, **kwargs):
+        out, seconds = wall_timed(fn)(*args, **kwargs)
+        self.add(name, seconds)
+        return out
+
+    def get(self, name):
+        return self.totals.get(name, 0.0)

@@ -11,8 +11,9 @@ failed factor mapped to NaN, and the f32 blocked factor against f64; the
 comparison models and variants against the port on the CPU: kNN-mean
 bitwise, the ELM within the CPU's control, the neighbour strategies'
 indices exactly, ``loo_lanes`` and the LU posterior, and one NNGPTime
-prediction from graphs bitwise its eager run. Run on a machine with
-one:
+prediction from graphs bitwise its eager run; ``build_cont_traj`` on the
+card against its one-slice trajectories, the plain fan-out and the
+kernel. Run on a machine with one:
 ``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
 Without a card every test here skips.
 
@@ -631,3 +632,34 @@ def test_nm_graph_capture_that_reads_back_raises():
                            xatol=1e-3)
     with pytest.raises(RuntimeError):
         nmg.run(x0, shift)
+
+
+def test_cont_traj_on_card_is_the_plain_fanout():
+    """The trajectory API on the card (torch ops, as the JAX package runs
+    it as XLA): ``build_cont_traj``'s batched slices equal their one-slice
+    trajectories bitwise, start at u[i], and end bitwise where the plain
+    fan-out on the card ends (both divide the step width on the card) and
+    within RTOL of max|u| of the kernel's fan-out."""
+    dev = _card()
+    ode = nt.Lorenz(normalization="-11", device=dev)
+    cfg = nt.Config(ode).get()
+    s = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"] // 10,
+                    G=cfg["G"], F=cfg["F"],
+                    device_field=ode.get_device_field(), device=dev)
+    p = nt.Parareal(ode, s, cfg["tspan"], cfg["N"], verbose=None, device=dev)
+    N, nf = p.N, s.Nf
+    rng = np.random.default_rng(5)
+    u = ode.u0[None, :] + 0.1 * rng.standard_normal((N + 1, ode.get_dim()))
+    t = np.linspace(cfg["tspan"][0], cfg["tspan"][1], N + 1)
+    traj = p.build_cont_traj({"t": t, "u": u})
+    rows = traj.reshape(N, nf + 1, -1)
+    np.testing.assert_array_equal(rows[:, 0], u[:-1])
+    for i in (0, N // 2, N - 1):
+        np.testing.assert_array_equal(
+            rows[i], s.run_F_full(t[i], t[i + 1], u[i]).cpu().numpy())
+    plain = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], nf, G=cfg["G"],
+                        F=cfg["F"], fine="torch", device=dev)
+    np.testing.assert_array_equal(
+        rows[:, -1], plain.run_F_batch(t[:-1], t[1:], u[:-1]).cpu().numpy())
+    kernel = s.run_F_batch(t[:-1], t[1:], u[:-1]).cpu().numpy()
+    assert np.abs(rows[:, -1] - kernel).max() <= RTOL * np.abs(u).max()

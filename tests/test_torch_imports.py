@@ -1,6 +1,8 @@
 """The port stands alone: importing nngparareal_torch, every module in it,
 and chip_smoke.py pulls in neither jax nor nngparareal_tpu, and the CUDA
-kernel's module imports on a machine with no card and no nvcc.
+kernel's module imports on a machine with no card and no nvcc, and on
+one with no matplotlib (the GPU machine has none: reporting.py imports it
+only inside its plotting functions).
 
 Checked in a fresh interpreter, since this test process has jax loaded.
 """
@@ -15,7 +17,9 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import importlib, os, pkgutil, sys
+    if os.environ.get("PROBE_NO_MATPLOTLIB"):
+        sys.modules["matplotlib"] = None  # any import of it raises
     import nngparareal_torch
     names = [m.name for m in pkgutil.walk_packages(
         nngparareal_torch.__path__, "nngparareal_torch.")]
@@ -42,7 +46,9 @@ def _run(env_extra):
     {},
     # no CUDA toolkit anywhere: nvcc cannot be found, the import still works
     {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent"},
-], ids=["default", "no-nvcc"])
+    # no matplotlib: every module, the reporting layer's included, imports
+    {"PROBE_NO_MATPLOTLIB": "1"},
+], ids=["default", "no-nvcc", "no-matplotlib"])
 def test_port_imports_without_jax(env_extra):
     proc = _run(env_extra)
     assert proc.returncode == 0, proc.stderr
