@@ -142,11 +142,35 @@ Phases, each printed as it ends with its seconds:
              its start u[i], its last row bitwise the plain torch fan-out
              on the card and within 1e-12 of max|u| of the kernel's;
              print_times and print_speedup on each Parareal object.
-12. serial    the runs' converged iterates against fine solves, slice by
+12. mesh     the scale-out (parallel/mesh.py), each part held bitwise
+             (max |difference| 0.0) against the same work unsharded, on a
+             mesh of this one card or of the card named several times (a
+             stand-in for separate cards: its blocks run one after another
+             on one stream, so its times say nothing about several cards):
+             (a) shard_fine_fanout of Burgers (128, 128) RK8 x 40 000 (the
+             per-cell kernel) on make_mesh() and on 4 blocks, and of FHN
+             (40, 2) RK4 x 4000 (the per-slice kernel) on 4 blocks, and at
+             B=37 through the driver's padding (to 40); the ms of each,
+             its launches and the mesh size; (b) Table 2's FHN and Lorenz,
+             bare Parareal, on 4 blocks (Lorenz's 50 slices padded by 2):
+             K 11 and 15 and the table2 phase's iterates; (c) GParareal
+             on FHN with the grid search (the table2_gp phase's
+             configuration) with its task pool on 2 blocks: K=5, conv_int
+             [1, 2, 3, 9, 40] and the table2_gp phase's iterates; (d)
+             GParareal with score_lanes=True (the blocked lane-major NLL)
+             on FHN cut to 16 slices and Nf/10, buckets 16-128 (the cut of
+             tests/test_torch_gparareal_cut.py): the JAX package's K=6 and
+             conv_int [1, 2, 3, 5, 14, 16] on the CPU, its run time and
+             the calls of the blocked factor; (e) run_table2(pool=2) of FHN and
+             Lorenz, bare Parareal, in two spawned processes on the card:
+             K 11 and 15, conv_int and errors those of the table2 phase;
+             the wall time.
+13. serial    the runs' converged iterates against fine solves, slice by
              slice (atol 2e-5, as tests/test_parareal.py holds the JAX
              package): Burgers one slice after another from u0; FHN-PDE
-             and each Table-2, figure2 and variants run (every search and
-             model) with one kernel fan-out from the converged starts.
+             and each Table-2, figure2, variants and mesh run (every
+             search and model) with one kernel fan-out from the converged
+             starts.
 
 Then one JSON line describing each kernel (its launches on its path's
 run, split by shape into fine fan-outs and coarse solves,
@@ -283,6 +307,15 @@ API_LAG_CONV_INT_CPU = [1, 2, 3, 25, 38, 40]
 API_FHN_GRID = (5, [1, 2, 5, 25, 40])
 API_LORENZ_K = 15
 API_TRAJ_RTOL = 1e-12
+# the mesh phase: blocks of the repeated-card meshes, Table 2's bare K,
+# and the cut FHN of tests/test_torch_gparareal_cut.py with score_lanes
+# (the JAX package's K and conv_int on the CPU,
+# tests/test_torch_gparareal_cut_lanes.py)
+MESH_BLOCKS = 4
+MESH_GP_BLOCKS = 2
+LANES_CUT = dict(fine_cut=10, slices=16)
+LANES_K = 6
+LANES_CONV_INT_CPU = [1, 2, 3, 5, 14, 16]
 # the payload keys of Parareal.store, as the JAX package writes them
 STORE_KEYS = {"ode_name", "tspan", "N", "epsilon", "n", "runs", "fine_t"}
 
@@ -1839,6 +1872,203 @@ def phase_api(state):
     return info
 
 
+def phase_mesh(state):
+    """The scale-out (the mesh phase of the module docstring)."""
+    import numpy as np
+    import torch
+    import nngparareal_torch as nt
+    from nngparareal_torch import experiments
+    from nngparareal_torch.parallel import make_mesh, shard_fine_fanout
+
+    dev = state["device"]
+    card = [dev] * MESH_BLOCKS
+    info, failures, parts = {}, [], {}
+
+    def part(name, fn):
+        tic = time.perf_counter()
+        info[name] = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - tic
+
+    def bitwise(name, got, want):
+        gap = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+        if gap != 0.0:
+            failures.append(f"{name}: max |difference| {gap:.3e}")
+        return gap
+
+    # (a) the fan-out through shard_fine_fanout
+    def fanouts():
+        out = {}
+        p, run = state["flagship"]
+        cases = [("burgers", p, run, make_mesh(), None),
+                 ("burgers", p, run, make_mesh(devices=card), None)]
+        fhn = _system_parareal("FHNODE", dev)
+        fhn_run = next(o for n, _, o in state["table2"]
+                       if n == "FHN_ODE parareal")
+        cases += [("fhn_ode", fhn, fhn_run, make_mesh(devices=card), None),
+                  ("fhn_ode", fhn, fhn_run, make_mesh(devices=card), RAGGED)]
+        for field, p, run, mesh, B in cases:
+            solver = p.solver
+            t = torch.as_tensor(run["t"], device=dev)
+            u = torch.as_tensor(run["u"], device=dev)
+            B = B or p.N
+            args = (t[:B].contiguous(), t[1:B + 1].contiguous(),
+                    u[:B].contiguous())
+            want = solver.run_F_batch(*args)
+            if B % mesh.devices.size:
+                fan = p._make_fanout(mesh)  # the driver's padding
+            else:
+                fan = shard_fine_fanout(solver.fine_batch_raw, mesh)
+            zero_counts()
+            got = fan(*args)
+            torch.cuda.synchronize()
+            launches = read_counts(state, field, "mesh")
+            key = f"{field} B={B} on {mesh.devices.size}"
+            out[key] = {
+                "mesh_size": int(mesh.devices.size), "launches": launches,
+                "pad": (-B) % mesh.devices.size,
+                "max_abs_diff": bitwise(key, got.cpu(), want.cpu()),
+                "ms": _event_ms(lambda: fan(*args), 3),
+                "unsharded_ms": _event_ms(
+                    lambda: solver.run_F_batch(*args), 3)}
+            if launches != mesh.devices.size:
+                failures.append(f"{key}: {launches} launches")
+        return out
+
+    # (b) Table 2's FHN and Lorenz, bare Parareal, on 4 blocks
+    def table2_bare():
+        out = {}
+        for name, system, field in (("FHN_ODE", "FHNODE", "fhn_ode"),
+                                    ("Lorenz", "Lorenz", "lorenz")):
+            want = next(o for n, _, o in state["table2"]
+                        if n == f"{name} parareal")
+            p = _system_parareal(system, dev)
+            got, launches, shapes = counted_run(
+                state, field, "mesh", p, model="parareal",
+                mesh=make_mesh(devices=card))
+            check_iterates(f"{name} parareal (mesh)", p, got)
+            state["table2"].append((f"{name} parareal (mesh)", p, got))
+            out[name] = {"K": got["k"], "K_oracle": TABLE2[name][1],
+                         "conv_int": got["conv_int"],
+                         "runtime_s": got["timings"]["runtime"],
+                         "fine_s": got["timings"]["F_time"],
+                         "unsharded_fine_s": want["timings"]["F_time"],
+                         "launches": launches,
+                         "launches_by_shape": shapes,
+                         "max_abs_diff": bitwise(f"{name} mesh u", got["u"],
+                                                 want["u"])}
+            if got["k"] != TABLE2[name][1] or not got["converged"]:
+                failures.append(f"{name} mesh: K={got['k']}")
+        return out
+
+    # (c) GParareal's grid search with its task pool on 2 blocks
+    def gp_grid():
+        want = next(o for n, _, o in state["table2"]
+                    if n == "FHN_ODE GP (grid)")
+        p = _system_parareal("FHNODE", dev)
+        got, launches, _ = counted_run(
+            state, "fhn_ode", "mesh", p, model="gpjax", optimizer="grid",
+            fatol=1e-6, xatol=1e-6,
+            mesh=make_mesh(devices=[dev] * MESH_GP_BLOCKS), add_model=True)
+        check_iterates("FHN_ODE GP (grid, mesh)", p, got)
+        state["table2"].append(("FHN_ODE GP (grid, mesh)", p, got))
+        if (got["k"], got["conv_int"]) != (GP_GRID_FHN_K,
+                                           GP_GRID_FHN_CONV_INT_CPU):
+            failures.append(f"GP grid mesh: K={got['k']} "
+                            f"conv_int={got['conv_int']}")
+        if got["mdl"].mesh is None:
+            failures.append("GP grid mesh: the model did not shard")
+        tm = got["timings"]
+        return {"K": got["k"], "conv_int": got["conv_int"],
+                "runtime_s": tm["runtime"], "train_s": tm["mdl_train_t"],
+                "unsharded_train_s": want["timings"]["mdl_train_t"],
+                "buckets": tm["gp_buckets"], "launches": launches,
+                "max_abs_diff": bitwise("GP grid mesh u", got["u"],
+                                        want["u"])}
+
+    # (d) score_lanes on the cut FHN
+    def lanes():
+        from nngparareal_torch.ops import gp_lanes
+
+        ode = nt.FHNODE(normalization="-11", device=dev)
+        cfg = nt.Config(ode).get()
+        cfg["Nf"] //= LANES_CUT["fine_cut"]
+        width = (cfg["tspan"][1] - cfg["tspan"][0]) / cfg["N"]
+        n = LANES_CUT["slices"]
+        solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
+                             G=cfg["G"], F=cfg["F"],
+                             device_field=ode.get_device_field(), device=dev)
+        p = nt.Parareal(ode, solver, [cfg["tspan"][0],
+                                      cfg["tspan"][0] + n * width], n,
+                        epsilon=5e-7, device=dev)
+        factor = gp_lanes.cholesky_lanes_blocked
+        calls = {}
+
+        def counted_factor(A, *args, **kwargs):
+            calls[A.shape[0]] = calls.get(A.shape[0], 0) + 1
+            return factor(A, *args, **kwargs)
+
+        gp_lanes.cholesky_lanes_blocked = counted_factor
+        try:
+            got, launches, _ = counted_run(
+                state, "fhn_ode", "mesh", p, model="gpjax",
+                optimizer="grid", score_lanes=True, fatol=1e-6, xatol=1e-6)
+        finally:
+            gp_lanes.cholesky_lanes_blocked = factor
+        check_iterates("FHN_ODE GP (score_lanes, cut)", p, got)
+        state["table2"].append(("FHN_ODE GP (score_lanes, cut)", p, got))
+        if (got["k"], got["conv_int"]) != (LANES_K, LANES_CONV_INT_CPU):
+            failures.append(f"score_lanes: K={got['k']} "
+                            f"conv_int={got['conv_int']}")
+        tm = got["timings"]
+        return {"K": got["k"], "K_jax_cpu": LANES_K,
+                "conv_int": got["conv_int"],
+                "conv_int_jax_cpu": LANES_CONV_INT_CPU,
+                "runtime_s": tm["runtime"], "train_s": tm["mdl_train_t"],
+                "buckets": tm["gp_buckets"],
+                "factor_calls_by_rows": calls, "launches": launches}
+
+    # (e) run_table2(pool=2) in two spawned processes on the card
+    def pool():
+        # the workers' own prints go to the log, as the phase's do
+        sys.stdout.flush()
+        saved = os.dup(1)
+        os.dup2(state["log_fd"], 1)
+        tic = time.perf_counter()
+        try:
+            rows = experiments.run_table2(
+                TABLE2_EPS, models=("parareal",), results_dir=None,
+                systems=["FHN_ODE", "Lorenz"], pool=2)
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        wall = time.perf_counter() - tic
+        out = {"wall_s": wall}
+        for row in rows:
+            (r,) = row["runs"]
+            want = next(o for n, _, o in state["table2"]
+                        if n == f"{row['system']} parareal")
+            out[row["system"]] = {"K": r["k"], "conv_int": r["conv_int"]}
+            if (r["k"], r["conv_int"]) != (want["k"], want["conv_int"]) or (
+                    r["k"] != TABLE2[row["system"]][1]):
+                failures.append(f"pool {row['system']}: K={r['k']}")
+            bitwise(f"pool {row['system']} err", r["err"], want["err"])
+        if [r["system"] for r in rows] != ["FHN_ODE", "Lorenz"]:
+            failures.append(f"pool ran {[r['system'] for r in rows]}")
+        return out
+
+    part("fanout", fanouts)
+    part("table2_bare", table2_bare)
+    part("gp_grid", gp_grid)
+    part("score_lanes", lanes)
+    part("pool", pool)
+    info["parts_s"] = parts
+    if failures:
+        raise PhaseError("mesh: " + "; ".join(failures))
+    return info
+
+
 def phase_serial(state):
     import numpy as np
     import torch
@@ -1931,7 +2161,7 @@ def main():
     signal.signal(signal.SIGALRM, on_alarm)
     signal.alarm(DEADLINE_S)
     state = {"device": torch.device("cuda", 0), "kernels": {},
-             "notes": phases.notes}
+             "notes": phases.notes, "log_fd": log.fileno()}
     t_start = time.perf_counter()
     try:
         env = phases.run("env", phase_env)
@@ -1945,6 +2175,7 @@ def main():
         phases.run("figure2", phase_figure2, state)
         phases.run("variants", phase_variants, state)
         phases.run("api", phase_api, state)
+        phases.run("mesh", phase_mesh, state)
         phases.run("serial", phase_serial, state)
     except Exception as exc:  # report the phase, exit nonzero
         signal.alarm(0)

@@ -6,7 +6,9 @@ hand-written CUDA kernel (csrc/rk_fanout.cu) built with nvcc at first use
 and bound with ctypes. The package imports neither jax nor nngparareal_tpu.
 
 Entry points (the systems, ``RKSolver``, ``Parareal``) put their tensors
-on the CUDA card unless the caller passes ``device="cpu"``.
+on the CUDA card unless the caller passes ``device="cpu"``. ``make_mesh``
+builds the device mesh that ``Parareal.run(mesh=...)`` splits the fine
+fan-out over (every visible card by default).
 """
 
 from nngparareal_torch.systems import (
@@ -25,6 +27,7 @@ from nngparareal_torch.systems import (
 from nngparareal_torch.systems.configs import Config
 from nngparareal_torch.solver import RKSolver, ScipySolver
 from nngparareal_torch.driver import Parareal, PararealLight
+from nngparareal_torch.parallel import make_mesh
 
 __all__ = [
     "ODE",
@@ -43,4 +46,7 @@ __all__ = [
     "ScipySolver",
     "Parareal",
     "PararealLight",
+    "make_mesh",
 ]
+
+__version__ = "0.1.0"

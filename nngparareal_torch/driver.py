@@ -3,7 +3,11 @@
 Port of ``nngparareal_tpu/driver.py:Parareal``. Each iteration does:
 
 1. **fine fan-out** over the unconverged slices [I, N): one call of the
-   solver's batched fine integrator (the CUDA kernel on a card);
+   solver's batched fine integrator (the CUDA kernel on a card); with
+   ``run(mesh=...)`` the slices split into contiguous blocks over the
+   mesh's devices (``parallel/mesh.py``), padded to a whole number of
+   blocks by repeating the last slice, each block run by the solver's own
+   fine arithmetic on its device;
 2. **data append**: freeze slice I+1 and write the iteration's (state,
    defect) rows into the padded dataset, in place;
 3. **corrector sweep** ``u_{i+1} = model(u_i) + G(u_i)`` over the intervals
@@ -60,9 +64,8 @@ batch), ``clear_plot_obj`` and the reporting delegates ``print_times``,
 ``PararealLight`` keeps no history and refuses checkpoints, as the JAX
 package's does.
 
-Left out: ``mesh=`` (multi-GPU slice sharding; it raises), the JAX
-package's process ``pool=`` of its experiment drivers, the "host_cpu"
-sweep (above), its AOT/compile-cache machinery (torch has no compile step
+``mesh`` also reaches GParareal, which shards its grid search's task pool
+over the same devices. Left out: the "host_cpu" sweep (above), its AOT/compile-cache machinery (torch has no compile step
 here; its power-of-two fan-out buckets with it: the kernel takes any
 batch), the routing of the time-augmented nnGP's sweep to the CPU (a
 workaround for a TPU toolchain fault) and the double-single fine path
@@ -82,6 +85,7 @@ from nngparareal_torch.models import (
     NNGPScipy, NNGPTime,
 )
 from nngparareal_torch.models.base import ModelBase
+from nngparareal_torch.parallel.mesh import shard_fine_fanout
 from nngparareal_torch.solver import SolverAbstr
 from nngparareal_torch.systems.base import ODE
 from nngparareal_torch.utils.device import resolve_device
@@ -94,7 +98,7 @@ _NNGP_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol", "nm_max_iters",
               "grid_polish", "score_dtype", "strategy", "calc_detail_avg")
 _GP_KEYS = ("theta", "seed", "fatol", "xatol", "nm_max_iters", "optimizer",
             "score_dtype", "grid_chunk", "grid_task_chunk", "grid_logs",
-            "alpha_res_tol", "fit_rows_cap", "score_rows_cap")
+            "score_lanes", "alpha_res_tol", "fit_rows_cap", "score_rows_cap")
 _GP_SCIPY_KEYS = ("theta", "seed", "fatol", "xatol")
 _NNGP_SCIPY_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol")
 _NNGP_TIME_KEYS = ("nn", "n_restarts", "seed", "fatol", "xatol",
@@ -209,6 +213,9 @@ class Parareal:
             if key in names:
                 # the JAX package drops the keywords a model does not take
                 own = {k: v for k, v in kw.items() if k in keys}
+                if cls is GParareal:
+                    # run(mesh=...) also shards its grid search's task pool
+                    own["mesh"] = kwargs.get("mesh")
                 return cls(n=self.n, N=self.N, **{**defaults, **own})
         raise ValueError(f"Unknown model {model!r}")
 
@@ -228,6 +235,43 @@ class Parareal:
                 shadows.append([skw.get("cstm_name", f"{name}:{mdl.name}"),
                                 mdl])
         return shadows
+
+    # ------------------------------------------------------------------
+    # the fine fan-out
+    # ------------------------------------------------------------------
+
+    def _make_fanout(self, mesh):
+        """(t0s, t1s, U) -> the fine endpoints of every slice: the solver's
+        ``run_F_batch``, or with a mesh its ``fine_batch_raw`` over the
+        mesh's blocks. A batch that does not divide over the mesh is padded
+        by repeating its last slice (the pad may exceed the batch) and the
+        result cut back to it."""
+        solver = self.solver
+        if mesh is None:
+            return solver.run_F_batch
+        first = mesh.devices[0]
+        if first != self.device:
+            raise ValueError(f"the mesh's first device ({first}) must be the "
+                             f"run's device ({self.device}): the blocks "
+                             f"gather there")
+        if not hasattr(solver, "fine_batch_raw"):
+            raise ValueError(f"mesh= needs a solver with fine_batch_raw (an "
+                             f"RKSolver), not {type(solver).__name__}")
+        sharded = shard_fine_fanout(solver.fine_batch_raw, mesh)
+        ndev = mesh.devices.size
+
+        def fanout(t0s, t1s, U):
+            t0s, t1s, U = (solver._t(x).contiguous() for x in (t0s, t1s, U))
+            B = int(U.shape[0])
+            pad = (-B) % ndev
+            if pad:
+                t0s = torch.cat([t0s, t0s[-1:].expand(pad)])
+                t1s = torch.cat([t1s, t1s[-1:].expand(pad)])
+                U = torch.cat([U, U[-1:].expand(pad, -1)])
+            out = sharded(t0s, t1s, U)
+            return out[:B] if pad else out
+
+        return fanout
 
     # ------------------------------------------------------------------
     # the corrector sweep
@@ -319,10 +363,6 @@ class Parareal:
         verbose=_OWN,
         _resume=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-GPU slice sharding) is not ported yet "
-                "(ROADMAP.md, modules still to port)")
         if sweep_mode == "host_cpu":
             raise ValueError(
                 "sweep_mode='host_cpu' moves the JAX package's sweep to the "
@@ -341,6 +381,7 @@ class Parareal:
         t_np = np.linspace(self.tspan[0], self.tspan[1], N + 1)
         t = torch.as_tensor(t_np, dtype=torch.float64, device=dev)
 
+        fanout = self._make_fanout(mesh)
         shadows = self._shadows(comp_models or ())
         debug = debug or bool(shadows)
         # 'fast': the fan-out is not waited for; the iteration's one wait
@@ -408,7 +449,7 @@ class Parareal:
                 # iteration's wall
                 per_slice_fine_t = self._measure_serial_fine(t_np, u[0])
             iter_tic = time.perf_counter()
-            sub = solver.run_F_batch(t[I:N], t[I + 1:N + 1], u[I:N])
+            sub = fanout(t[I:N], t[I + 1:N + 1], u[I:N])
             if not fast_sync:
                 _block(sub)
             F_time += time.perf_counter() - iter_tic
@@ -478,7 +519,7 @@ class Parareal:
 
             # --- debug: the predictions' errors against the truth ---
             if debug:
-                truth, pe = self._debug_errors(t, I, u_next)
+                truth, pe = self._debug_errors(t, I, u_next, fanout)
                 mean_errs.append(pe.mean(axis=0))
                 max_errs.append(pe.max(axis=0))
                 all_pred_err.append(pe)
@@ -595,11 +636,12 @@ class Parareal:
             out["u_hist"] = np.stack(hist_u, axis=2)
         return out
 
-    def _debug_errors(self, t, I, u_next):
+    def _debug_errors(self, t, I, u_next, fanout):
         """The truth, every slice fine-integrated from the new iterate in
-        one fan-out, (N, n) on the device; and |truth - u_next| of the
-        active intervals [I, N) on the host."""
-        truth = self.solver.run_F_batch(t[:-1], t[1:], u_next[:-1])
+        one fan-out (the run's: over the mesh when it has one), (N, n) on
+        the device; and |truth - u_next| of the active intervals [I, N) on
+        the host."""
+        truth = fanout(t[:-1], t[1:], u_next[:-1])
         return truth, torch.abs(truth - u_next[1:])[I:].cpu().numpy()
 
     def _shadow_errors(self, mdl, ds, k, I, u_next, uF, uG, uG_next, truth):

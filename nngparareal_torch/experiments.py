@@ -14,7 +14,9 @@ Port of ``nngparareal_tpu/experiments.py``:
                      (``fhn_pde_parareal`` builds its Parareal);
 * ``run_table2``  -- iterations to convergence of the paper's Table 2: six
                      ODE systems (FHN, Rossler, Hopf N=32, Brusselator,
-                     Lorenz, DblPend) at their published configurations;
+                     Lorenz, DblPend) at their published configurations,
+                     one after another or (``pool=k``) over k spawned
+                     worker processes;
 * ``run_burgers_across_m`` -- K against the neighbour count m, each seed
                      threaded into the nnGP's Nelder-Mead starts;
 * ``main``        -- the command line: ``python -m
@@ -31,9 +33,9 @@ package's settings for each driver (``run_hopf``: theta [1, 1] and fatol =
 xatol = 1e-6; ``run_tomlab``: 1e-1; ``run_table2``: 1e-6), overridden by
 ``gp_kw`` where the JAX driver takes it.
 
-Not ported yet (ROADMAP.md), each refused before any model runs:
-``mesh=`` (multi-GPU slice sharding) and ``run_table2``'s process
-``pool=``.
+Every driver takes ``mesh`` (``parallel.make_mesh``): each run's fine
+fan-out, and GParareal's grid search, split over its devices. The mesh's
+first device must be the run's ``device``.
 """
 
 import numpy as np
@@ -50,16 +52,6 @@ from nngparareal_torch.systems.configs import Config
 from nngparareal_torch.utils.io import store_pickle
 
 MODELS_DEFAULT = ("parareal", "gpjax", "nngp")
-_TODO = "is not ported yet (ROADMAP.md, modules still to port)"
-
-
-def _refuse(mesh=None, pool=None):
-    """The arguments of parts not ported yet, refused before any run."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh= (multi-GPU slice sharding) {_TODO}")
-    if pool:
-        raise NotImplementedError(f"run_table2's pool= (a process per "
-                                  f"system) {_TODO}")
 
 
 def _summarize(name, out, N):
@@ -110,7 +102,6 @@ def run_hopf(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
     """Hopf scalability: the Config's fine step count x ``fine_mult``,
     fine solves paged in Nf/25 chunks (the plain path; the kernel takes
     every step in one launch)."""
-    _refuse(mesh)
     _check_models(models)
     ode = Hopf(normalization="-11", device=device)
     cfg = Config(ode, N=N).get()
@@ -127,14 +118,13 @@ def run_hopf(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
         "nngp": dict(fatol=1e-1, xatol=1e-1, nn=15, n_restarts=2, seed=45),
     }
     return _run_models(p, model_kwargs, models, results_dir, f"hopf_{N}",
-                       store_int=store_int, nngp_kw=nngp_kw)
+                       mesh=mesh, store_int=store_int, nngp_kw=nngp_kw)
 
 
 def run_tomlab(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
                store_int=False, nngp_kw=None, gp_kw=None, device=None):
     """Thomas labyrinth scalability (T and the step counts per N from its
     Config)."""
-    _refuse(mesh)
     _check_models(models)
     ode = ThomasLabyrinth(normalization="-11", device=device)
     cfg = Config(ode, N=N).get()
@@ -148,7 +138,7 @@ def run_tomlab(N, models=MODELS_DEFAULT, results_dir="results", mesh=None,
         "nngp": dict(nn=18, n_restarts=1, fatol=1e-3, xatol=1e-3, seed=45),
     }
     return _run_models(p, model_kwargs, models, results_dir, f"tomlab_{N}",
-                       store_int=store_int, nngp_kw=nngp_kw)
+                       mesh=mesh, store_int=store_int, nngp_kw=nngp_kw)
 
 
 def run_burgers(T=5.9, N=128, models=MODELS_DEFAULT, results_dir="results",
@@ -156,7 +146,6 @@ def run_burgers(T=5.9, N=128, models=MODELS_DEFAULT, results_dir="results",
                 device=None):
     """Viscous Burgers d=N=128 over [0, T]: RK1 x4 / RK8 x40 000 per
     slice."""
-    _refuse(mesh)
     _check_models(models)
     ode = Burgers(d_x=N, normalization="-11", device=device)
     Ng = 4  # per slice; Ng=4N in all
@@ -166,7 +155,7 @@ def run_burgers(T=5.9, N=128, models=MODELS_DEFAULT, results_dir="results",
     p = Parareal(ode, solver, [0.0, T], N, epsilon=5e-7, device=device)
     model_kwargs = {"nngp": dict(nn=nn, seed=seed)}
     return _run_models(p, model_kwargs, models, results_dir,
-                       f"burgers_{N}_T{T}", store_int=store_int,
+                       f"burgers_{N}_T{T}", mesh=mesh, store_int=store_int,
                        nngp_kw=nngp_kw)
 
 
@@ -195,12 +184,11 @@ def run_fhn_pde(dx, models=MODELS_DEFAULT, results_dir="results",
                 mesh=None, store_int=False, nngp_kw=None, device=None):
     """FHN 2D PDE d-scaling run at grid width dx (``fhn_pde_parareal``)
     for each model; returns the summary rows."""
-    _refuse(mesh)
     p = fhn_pde_parareal(dx, device=device)
     model_kwargs = {"nngp": dict(nn=20)}
     return _run_models(
         p, model_kwargs, models, results_dir, f"fhn_pde_{dx}",
-        store_int=store_int, nngp_kw=nngp_kw,
+        mesh=mesh, store_int=store_int, nngp_kw=nngp_kw,
     )
 
 
@@ -216,9 +204,14 @@ _TABLE2_SYSTEMS = [
 
 
 def _run_table2_system(idx, epsilon, models, device=None, nngp_kw=None,
-                       gp_kw=None):
+                       gp_kw=None, mesh=None):
     """One whole-system Table-2 run at its published configuration (Hopf
-    at N=32); returns {system, epsilon, nn, runs}."""
+    at N=32); returns {system, epsilon, nn, runs}. Module-level, so that
+    it pickles into a spawned worker of ``run_table2(pool=...)``, which
+    runs it on ``device`` as the parent would (the card unless
+    ``device="cpu"``: several processes share a card, where the JAX
+    package's workers force the CPU because a TPU chip cannot be
+    shared)."""
     ctor, nn7, nn9 = _TABLE2_SYSTEMS[idx]
     nn = nn7 if epsilon == 5e-7 else nn9
     ode = ctor(normalization="-11", device=device)
@@ -235,7 +228,7 @@ def _run_table2_system(idx, epsilon, models, device=None, nngp_kw=None,
         "gpjax": dict(fatol=1e-6, xatol=1e-6, **(gp_kw or {})),
     }
     sys_rows = _run_models(p, model_kwargs, models, None, "",
-                           nngp_kw=nngp_kw)
+                           nngp_kw=nngp_kw, mesh=mesh)
     return {"system": ode.name, "epsilon": epsilon, "nn": nn,
             "runs": sys_rows}
 
@@ -250,20 +243,42 @@ def run_table2(epsilon=5e-7, models=MODELS_DEFAULT, results_dir="results",
     ``nngp_kw``: the nnGP's overrides (the JAX ``run_table2`` has none;
     its nnGP always runs Nelder-Mead, as the port's does without them).
     ``gp_kw``: GParareal's, over fatol = xatol = 1e-6.
-    ``mesh`` and ``pool`` are not ported and raise."""
-    _refuse(mesh, pool=pool)
+    ``pool``: an int fans the whole-system runs over that many spawned
+    worker processes (the rows come back in the systems' order and are
+    stored once, at the end); each worker runs on ``device``. It excludes
+    ``mesh``, as in the JAX package."""
     _check_models(models)
+    if pool and mesh is not None:
+        raise ValueError("pool= (process fan-out) and mesh= (one run over "
+                         "several devices) are mutually exclusive")
     sel = [i for i, (ctor, _, _) in enumerate(_TABLE2_SYSTEMS)
            if systems is None
-           or ctor(normalization="-11", device=device).name in systems]
+           or ctor(normalization="-11", device="cpu").name in systems]
+    tasks = _table2_tasks(sel, epsilon, models, device, nngp_kw, gp_kw)
+    if pool:
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(
+                max_workers=int(pool),
+                mp_context=mp.get_context("spawn")) as ex:
+            rows = list(ex.map(_run_table2_system, *zip(*tasks)))
+        if results_dir:
+            store_pickle(rows, f"table2_eps{epsilon:g}.pkl", results_dir)
+        return rows
     rows = []
-    for i in sel:
-        rows.append(_run_table2_system(i, epsilon, tuple(models),
-                                       device=device, nngp_kw=nngp_kw,
-                                       gp_kw=gp_kw))
+    for task in tasks:
+        rows.append(_run_table2_system(*task, mesh=mesh))
         if results_dir:
             store_pickle(rows, f"table2_eps{epsilon:g}.pkl", results_dir)
     return rows
+
+
+def _table2_tasks(sel, epsilon, models, device, nngp_kw, gp_kw):
+    """The positional arguments of ``_run_table2_system`` for each system
+    index of ``sel``: plain values, which pickle into a worker."""
+    device = None if device is None else torch.device(device)
+    return [(i, epsilon, tuple(models), device, nngp_kw, gp_kw) for i in sel]
 
 
 def run_burgers_across_m(ms=range(11, 31), seeds=range(100), T=5.9,
@@ -271,13 +286,13 @@ def run_burgers_across_m(ms=range(11, 31), seeds=range(100), T=5.9,
     """K and speedup against the neighbour count m, over seeds: each seed
     is the nnGP's, so it draws the Nelder-Mead starts. A run that raises is
     recorded as a row with its error."""
-    _refuse(mesh)
     rows = []
     for m in ms:
         for seed in seeds:
             try:
                 res = run_burgers(T=T, models=("nngp",), results_dir=None,
-                                  nn=m, seed=int(seed), device=device)[0]
+                                  mesh=mesh, nn=m, seed=int(seed),
+                                  device=device)[0]
                 rows.append({"m": m, "seed": seed, "k": res["k"],
                              "speedup": res["speedup"]})
             except Exception as e:  # record failures as data rows
@@ -293,8 +308,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="nngparareal_torch experiments (the PyTorch/CUDA port). "
                     "The default --models runs parareal, gpjax (GParareal) "
-                    "and nngp, as the JAX package's does. --mesh-devices and "
-                    "--pool are not ported yet and are refused (ROADMAP.md).")
+                    "and nngp, as the JAX package's does.")
     ap.add_argument("experiment", choices=[
         "hopf", "tomlab", "burgers", "fhn_pde", "table2", "burgers_m",
     ])
@@ -309,7 +323,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--mesh-devices", type=int, default=None,
-                    help="not ported: refused")
+                    help="shard each run's fine fan-out (and GParareal's "
+                         "grid search) over this many CUDA cards; with "
+                         "--device cpu, over that many blocks on the CPU")
     ap.add_argument("--nngp-grid", action="store_true",
                     help="nnGP grid hyperopt (default: Nelder-Mead, the "
                          "reference's search)")
@@ -320,15 +336,20 @@ def main(argv=None):
                     help="GParareal's Nelder-Mead iterations at most "
                          "(default 400)")
     ap.add_argument("--pool", type=int, default=None,
-                    help="not ported: refused")
+                    help="table2: fan the whole-system runs over this many "
+                         "spawned worker processes, each on --device")
     ap.add_argument("--systems", nargs="+", default=None,
                     help="table2: subset of system names")
     args = ap.parse_args(argv)
 
-    for flag, val in (("--mesh-devices", args.mesh_devices),
-                      ("--pool", args.pool)):
-        if val:
-            raise NotImplementedError(f"{flag} {_TODO}")
+    dev = args.device
+    mesh = None
+    if args.mesh_devices:
+        from nngparareal_torch.parallel.mesh import make_mesh
+
+        k = args.mesh_devices
+        on_cpu = dev is not None and torch.device(dev).type == "cpu"
+        mesh = make_mesh(k, devices=[dev] * k if on_cpu else None)
     models = tuple(args.models)
     nngp_kw = dict(optimizer="grid") if args.nngp_grid else None
     gp_kw = None
@@ -336,26 +357,25 @@ def main(argv=None):
         gp_kw = dict(score_dtype=torch.float32)
     if args.gp_nm_iters:
         gp_kw = dict(gp_kw or {}, nm_max_iters=args.gp_nm_iters)
-    dev = args.device
     if args.experiment == "hopf":
-        rows = run_hopf(args.N or 32, models, args.results_dir,
+        rows = run_hopf(args.N or 32, models, args.results_dir, mesh,
                         nngp_kw=nngp_kw, gp_kw=gp_kw, device=dev)
     elif args.experiment == "tomlab":
-        rows = run_tomlab(args.N or 32, models, args.results_dir,
+        rows = run_tomlab(args.N or 32, models, args.results_dir, mesh,
                           nngp_kw=nngp_kw, gp_kw=gp_kw, device=dev)
     elif args.experiment == "burgers":
         rows = run_burgers(args.T, args.N or 128, models, args.results_dir,
-                           nngp_kw=nngp_kw, device=dev)
+                           mesh, nngp_kw=nngp_kw, device=dev)
     elif args.experiment == "fhn_pde":
-        rows = run_fhn_pde(args.dx or 10, models, args.results_dir,
+        rows = run_fhn_pde(args.dx or 10, models, args.results_dir, mesh,
                            nngp_kw=nngp_kw, device=dev)
     elif args.experiment == "table2":
-        rows = run_table2(args.epsilon, models, args.results_dir,
-                          systems=args.systems, device=dev, nngp_kw=nngp_kw,
-                          gp_kw=gp_kw)
+        rows = run_table2(args.epsilon, models, args.results_dir, mesh,
+                          systems=args.systems, pool=args.pool, device=dev,
+                          nngp_kw=nngp_kw, gp_kw=gp_kw)
     else:
         rows = run_burgers_across_m(T=args.T, results_dir=args.results_dir,
-                                    device=dev)
+                                    mesh=mesh, device=dev)
 
     for r in rows:
         if "runs" in r:

@@ -31,8 +31,17 @@ dataset row and a dot with alpha.
 stays f64), with the JAX package's relative jitter floor and, above 48
 rows, the IEEE-f32 blocked factorisation of ``ops/chol_blocked.py``.
 
-Not ported (refused, ROADMAP.md): ``score_lanes=True`` (the blocked
-lane-major NLL) and ``mesh=`` (sharding the task pool over devices).
+``score_lanes=True`` scores the grid search's candidates through the
+blocked lane-major NLL (``ops/gp_lanes.py:nll_lanes_big``, candidates in
+the last axis) in place of one batched Cholesky per candidate; as in the
+JAX package, without the f32 relative floor.
+
+``mesh`` (a ``parallel.mesh.Mesh`` of more than one device) shards the
+grid search's (coordinate x jitter) task pool: each call carries
+``grid_task_chunk`` tasks per device, padded with dummy tasks to a whole
+number of calls, each device scores its block against its own copy of the
+fit's dataset, and the blocks gather in task order. The Nelder-Mead
+search and the rescue are not sharded, as in the JAX package.
 """
 
 import functools
@@ -42,14 +51,16 @@ import torch
 
 from nngparareal_torch.models.base import ModelBase
 from nngparareal_torch.ops import gp as gpops
+from nngparareal_torch.ops import gp_lanes
 from nngparareal_torch.ops.optim import NelderMeadGraphs, nelder_mead_fixed
-
-_UNPORTED = "not ported yet (ROADMAP.md, modules still to port)"
 # Nelder-Mead iterations per captured graph: the host reads whether every
 # simplex has frozen after each replay
 NM_BLOCK = 8
 # elements of the Grams one batched NLL call keeps alive (2 GB in f64)
 GRAM_BUDGET = 1 << 28
+# elements of one (M, M, lanes) array of the blocked lane-major NLL (64 MB
+# in f64; the factor keeps a few such arrays alive)
+LANES_BUDGET = 1 << 23
 
 
 def task_nll(pts, sqd, Y, mask, jitter, rel_floor=None, score_dtype=None):
@@ -73,6 +84,25 @@ def task_nll(pts, sqd, Y, mask, jitter, rel_floor=None, score_dtype=None):
                                 rel_floor=rel_floor)
              for lo in range(0, B * C, step)]
     return torch.cat(parts).reshape(B, C).to(torch.float64)
+
+
+def task_nll_lanes(pts, sqd, Y, mask, jitter):
+    """``task_nll`` through the blocked lane-major NLL: the (task,
+    candidate) pairs in the lane axis, each lane its own target column and
+    jitter, in batches of at most LANES_BUDGET Gram elements; (B, C) in
+    f64, +inf where the factorisation failed."""
+    B, C, _ = pts.shape
+    M = sqd.shape[-1]
+    th = pts.reshape(B * C, 2)
+    jit = jitter[:, None].expand(B, C).reshape(B * C)
+    Ylanes = Y.T[:, None, :].expand(M, C, B).transpose(1, 2)  # (M, B, C)
+    Ylanes = Ylanes.reshape(M, 1, B * C)
+    step = max(1, LANES_BUDGET // (M * M))
+    parts = [gp_lanes.nll_lanes_big(sqd, Ylanes[:, :, lo:lo + step],
+                                    th[lo:lo + step], jit[lo:lo + step], mask,
+                                    kernel=gp_lanes.k_se_linear_lanes)[0]
+             for lo in range(0, B * C, step)]
+    return torch.cat(parts).reshape(B, C)
 
 
 class GParareal(ModelBase):
@@ -104,14 +134,6 @@ class GParareal(ModelBase):
         if score_dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"score_dtype must be None, torch.float32 or "
                              f"torch.float64, not {score_dtype!r}")
-        if score_lanes:
-            raise NotImplementedError(
-                f"GParareal score_lanes=True (the blocked lane-major NLL) is "
-                f"{_UNPORTED}")
-        if mesh is not None:
-            raise NotImplementedError(
-                f"GParareal mesh= (the task pool sharded over devices) is "
-                f"{_UNPORTED}")
         theta = (np.array([1.0, 1.0]) if theta is None
                  else np.asarray(theta, float))
         self.theta0 = theta
@@ -140,6 +162,11 @@ class GParareal(ModelBase):
         self.grid_chunk = None if grid_chunk is None else int(grid_chunk)
         self.grid_task_chunk = (None if grid_task_chunk is None
                                 else int(grid_task_chunk))
+        # the grid search's NLL through the blocked lane-major factor
+        self.score_lanes = bool(score_lanes)
+        # the grid search's task pool over a mesh of more than one device
+        self.mesh = (mesh if mesh is not None and mesh.devices.size > 1
+                     else None)
         # the residual below which a posterior solve is usable
         self.alpha_res_tol = float(alpha_res_tol)
         # fit on at most this many of the newest valid rows
@@ -227,11 +254,16 @@ class GParareal(ModelBase):
         if self.grid_chunk is not None:
             chunk = max(1, min(G, self.grid_chunk))
         sqd = gpops.pairwise_sq_dists(X, X)
-        f = torch.cat([
-            task_nll(grids[:, lo:lo + chunk], sqd, Ycols, valid, jp,
-                     rel_floor=self._rel_floor(),
-                     score_dtype=self.score_dtype)
-            for lo in range(0, G, chunk)], dim=1)
+        if self.score_lanes:
+            # no f32 floor on this path, as in the JAX package
+            score = functools.partial(task_nll_lanes, sqd=sqd, Y=Ycols,
+                                      mask=valid, jitter=jp)
+        else:
+            score = functools.partial(task_nll, sqd=sqd, Y=Ycols, mask=valid,
+                                      jitter=jp, rel_floor=self._rel_floor(),
+                                      score_dtype=self.score_dtype)
+        f = torch.cat([score(grids[:, lo:lo + chunk])
+                       for lo in range(0, G, chunk)], dim=1)
         i = torch.argmin(f, dim=1)
         rows = torch.arange(f.shape[0], device=f.device)
         return grids[rows, i], f[rows, i]
@@ -242,7 +274,9 @@ class GParareal(ModelBase):
         16x while a coordinate has no finite NLL; such a coordinate comes
         back with +inf (fit() rescues it). Returns each coordinate's best
         (theta, jitter exponent, NLL) as numpy, and the per-jitter
-        candidate table (None with f32 scoring)."""
+        candidate table (None with f32 scoring). With a mesh, block j of
+        each call's tasks is scored on the mesh's device j, every block
+        queued before any result is read."""
         n = self.n
         # f32 scoring: the relative floor lies above every grid jitter, so
         # the 9 jitter tasks would score alike; one task per coordinate at
@@ -260,21 +294,36 @@ class GParareal(ModelBase):
         if tc is None:
             tc = max(1, min(T, (18 * 256 * 256) // max(cap * cap, 1)))
         dev = dsX.device
-        Ycols = dsD.T.repeat_interleave(nj, dim=0)  # (T, M)
-        jp = torch.as_tensor(np.tile(jit_tasks, n), dtype=torch.float64,
-                             device=dev)
+        # with a mesh each call carries tc tasks per device, and dummy
+        # tasks (zero targets, jitter 10^-12, theta 1) pad the pool to
+        # whole calls; their NLLs are dropped
+        devs = [dev] if self.mesh is None else list(self.mesh.devices)
+        per_call = tc * len(devs)
+        Tp = T if self.mesh is None else -(-T // per_call) * per_call
+        Ycols = torch.cat([dsD.T.repeat_interleave(nj, dim=0),
+                           dsD.new_zeros((Tp - T, cap))])  # (Tp, M)
+        jp = np.concatenate([np.tile(jit_tasks, n), np.full(Tp - T, -12.0)])
+        # each device's copy of the fit's data, made once per fit
+        data = {d: tuple(x.to(d) for x in (dsX, Ycols, dsV,
+                                           torch.as_tensor(jp, device=d)))
+                for d in dict.fromkeys(devs)}
 
         def run_grid(g_full):
-            gj = torch.as_tensor(np.ascontiguousarray(g_full),
-                                 dtype=torch.float64, device=dev)
+            g_full = np.concatenate([g_full, np.ones((Tp - T, G, 2))])
+            gj = {d: torch.as_tensor(g_full, dtype=torch.float64, device=d)
+                  for d in data}
+            # every block is queued before any result is read
             th_parts, f_parts = [], []
-            for s in range(0, T, tc):
-                th_s, f_s = self._fit_grid(dsX, Ycols[s:s + tc], dsV,
-                                           gj[s:s + tc], jp[s:s + tc])
-                th_parts.append(th_s)
-                f_parts.append(f_s)
-            return (torch.cat(th_parts).cpu().numpy(),
-                    torch.cat(f_parts).cpu().numpy())
+            queued = dev.type == "cuda"
+            for s in range(0, Tp, tc):
+                d = devs[(s // tc) % len(devs)]
+                X, Y, V, jpd = data[d]
+                th_s, f_s = self._fit_grid(X, Y[s:s + tc], V, gj[d][s:s + tc],
+                                           jpd[s:s + tc])
+                th_parts.append(th_s.to(dev, non_blocking=queued))
+                f_parts.append(f_s.to(dev, non_blocking=queued))
+            return (torch.cat(th_parts)[:T].cpu().numpy(),
+                    torch.cat(f_parts)[:T].cpu().numpy())
 
         th1, f1 = run_grid(np.broadcast_to(10.0 ** base, (T, G, 2)))
         hs = self._refine_half_span

@@ -1,8 +1,10 @@
 """Batched GP kernels with the candidate batch in the LAST axis.
 
-Port of ``nngparareal_tpu/ops/gp_lanes.py`` (the parts the nnGP runs: the
+Port of ``nngparareal_tpu/ops/gp_lanes.py``: the parts the nnGP runs (the
 NLL, optionally scored in a lower precision, the leave-one-out score and
-the Cholesky and LU posteriors). Matrices are stored (m, m, B) for B (theta, jitter)
+the Cholesky and LU posteriors), and the blocked NLL that GParareal's
+``score_lanes=True`` runs at its Gram sizes (``nll_lanes_big``, with the
+linear-scale kernel ``k_se_linear_lanes``). Matrices are stored (m, m, B) for B (theta, jitter)
 candidates sharing one m x m squared-distance matrix; the Cholesky and the
 substitutions are the same column loops as the JAX package, each step one
 (*, B)-wide torch op.
@@ -80,6 +82,19 @@ def k_se_log10_lanes(sqd, theta):
     return pow10(sy) * torch.exp(-0.5 * pow10(-sx) * sqd[:, :, None])
 
 
+def k_se_linear_lanes(sqd, theta):
+    """Linear-parameterisation SE kernel (GParareal's) for B candidate
+    thetas at once: sy^2 exp(-0.5 d2 / sx^2).
+
+    sqd: (m, m) shared squared distances; theta: (B, 2) linear scale.
+    Returns (m, m, B). The division is by the tensor sx^2 (a card would
+    turn a division by a Python scalar into a product with its
+    reciprocal)."""
+    sx = theta[:, 0]
+    sy = theta[:, 1]
+    return (sy * sy) * torch.exp(-0.5 * sqd[:, :, None] / (sx * sx))
+
+
 def masked_gram_lanes(K, mask, jitter_pow):
     """Masked Gram + jitter: K (m, m, B), mask (m,), jitter_pow (B,).
     Padded rows/cols become identity.
@@ -95,7 +110,7 @@ def masked_gram_lanes(K, mask, jitter_pow):
     return Km + eye[:, :, None] * pow10(jitter_pow)[None, None, :]
 
 
-def cholesky_lanes(A):
+def cholesky_lanes(A, pivot_floor=None, diag_ref=None):
     """Cholesky of A (m, m, B), one column at a time; all ops (*, B).
 
     Column j is A[:, j] less sum_t L[:, t] L[j, t] over t < j, summed as
@@ -103,8 +118,14 @@ def cholesky_lanes(A):
     products as one FMA (right-looking, one op per column). Column j is
     stored at ``cols[j]`` (m, B), as in the JAX package's
     ``jnp.stack(cols, axis=0)``; the result is returned as (m, m, B).
+
+    ``pivot_floor`` clamps pivot j at ``pivot_floor * diag_ref[j]`` (the
+    diagonal of A (m, B) unless given: the blocked factor passes its
+    original matrix's) before the square root, as the JAX package does.
     """
     m, _, B = A.shape
+    if pivot_floor is not None and diag_ref is None:
+        diag_ref = torch.diagonal(A, dim1=0, dim2=1).T
     cols = torch.empty((m, m, B), dtype=A.dtype, device=A.device)
     # acc[k]: the running sum of column k over the columns done so far
     acc = torch.empty_like(cols)
@@ -113,7 +134,10 @@ def cholesky_lanes(A):
         s = A[:, j, :]
         if j:
             s = s - acc[j]
-        d = torch.sqrt(s[j])
+        sj = s[j]
+        if pivot_floor is not None:
+            sj = torch.maximum(sj, pivot_floor * diag_ref[j])
+        d = torch.sqrt(sj)
         col = s / d[None, :]
         col[j] = d
         if j:
@@ -148,6 +172,105 @@ def solve_lower_lanes(L, Y):
                 acc[j + 1:].addcmul_(*prod)
             else:
                 torch.mul(*prod, out=acc[1:])
+    return Z
+
+
+def cholesky_lanes_blocked(A, block=16, pivot_floor=None):
+    """Blocked lane-major Cholesky of A (m, m, B): right-looking, per
+    block column a ``block``-column ``cholesky_lanes`` of the diagonal
+    block, a ``block``-step triangular solve of the panel below it, and
+    one batched product for the trailing update, as the JAX package's.
+
+    m need not be a multiple of ``block``: A is padded with identity rows
+    and columns to a whole number of blocks, which factor to I. In the
+    diagonal block and the panel the sums run as XLA runs them on the CPU,
+    an FMA after another over the columns done; the trailing update is one
+    batched matrix product (``_sum_outer``), summed in the library's
+    order. ``pivot_floor`` clamps each pivot against A's own diagonal, as
+    in ``cholesky_lanes``.
+    """
+    m, _, B = A.shape
+    b = min(block, m)
+    nb = -(-m // b)
+    mp = nb * b
+    diagA = torch.diagonal(A, dim1=0, dim2=1).T  # (m, B)
+    A = A.clone() if mp == m else _pad_identity(A, mp)
+    if mp != m:
+        diagA = torch.cat([diagA, diagA.new_ones((mp - m, B))])
+    L = torch.zeros_like(A)
+    for J in range(nb):
+        lo, hi = J * b, (J + 1) * b
+        Ljj = cholesky_lanes(A[lo:hi, lo:hi], pivot_floor=pivot_floor,
+                             diag_ref=diagA[lo:hi])
+        L[lo:hi, lo:hi] = Ljj
+        if hi == mp:
+            break
+        # the panel A[hi:, lo:hi] Ljj^-T, a column at a time: column j is
+        # (A[:, j] - sum_t P[:, t] Ljj[j, t]) / Ljj[j, j], its sum kept as
+        # a running FMA per column
+        acc = A[hi:, lo:hi].clone()  # (r, b, B)
+        P = L[hi:, lo:hi]
+        for j in range(b):
+            P[:, j] = acc[:, j] / Ljj[j, j][None, :]
+            if j + 1 < b:
+                acc[:, j + 1:].addcmul_(P[:, j][:, None, :],
+                                        -Ljj[j + 1:, j][None, :, :])
+        # the trailing update A[hi:, hi:] -= P P^T
+        A[hi:, hi:] -= _sum_outer(P)
+    return L[:m, :m]
+
+
+def _pad_identity(A, mp):
+    """A (m, m, B) in the top-left corner of an (mp, mp, B) identity."""
+    m, _, B = A.shape
+    out = A.new_zeros((mp, mp, B))
+    out[:m, :m] = A
+    idx = torch.arange(m, mp, device=A.device)
+    out[idx, idx] = 1.0
+    return out
+
+
+def _sum_outer(P):
+    """P P^T over the middle axis of P (r, b, B), (r, r, B): one batched
+    product over the lanes, as the JAX package's ``einsum('ikb,jkb->ijb')``
+    (the library's sum order, not XLA's)."""
+    Pb = P.permute(2, 0, 1)  # (B, r, b)
+    return torch.matmul(Pb, Pb.transpose(1, 2)).permute(1, 2, 0)
+
+
+def solve_lower_lanes_blocked(L, Y, block=16):
+    """Blocked forward substitution: L Z = Y with L (m, m, B) lower,
+    Y (m, r, B or 1) -> Z (m, r, B). Per block of ``block`` rows (the
+    last one short when m is not a multiple): the rows solved so far
+    enter as one product, summed an FMA after another over those rows,
+    then the block's rows are solved one after another, each taking the
+    rows above it off one FMA at a time (``_solve_lower_running``)."""
+    m, _, B = L.shape
+    b = min(block, m)
+    zs = []
+    for lo in range(0, m, b):
+        hi = min(lo + b, m)
+        acc = Y[lo:hi]
+        if lo:
+            Zprev = torch.cat(zs)  # (lo, r, B)
+            Lrow = L[lo:hi, :lo]  # (bJ, lo, B)
+            acc = acc - dot0(Lrow.transpose(0, 1)[:, :, None, :],
+                             Zprev[:, None, :, :])
+        zs.append(_solve_lower_running(L[lo:hi, lo:hi], acc, B))
+    return torch.cat(zs)
+
+
+def _solve_lower_running(L, Y, B):
+    """Solve L Z = Y for one diagonal block, as the JAX package's blocked
+    substitution does: row j starts from Y[j] and takes the solved rows'
+    products off it one FMA at a time, then divides by L[j, j]."""
+    m = L.shape[0]
+    acc = Y.expand(-1, -1, B).clone()
+    Z = torch.empty_like(acc)
+    for j in range(m):
+        Z[j] = acc[j] / L[j, j][None, :]
+        if j + 1 < m:
+            acc[j + 1:].addcmul_(Z[j][None], -L[j + 1:, j][:, None, :])
     return Z
 
 
@@ -281,3 +404,22 @@ def posterior_mean_lu(sqd, sqd_q, Y, theta, jitter_pow, mask):
     alpha = torch.linalg.solve_ex(A, y)[0][:, :, 0]  # (B, m)
     k_star = k_se_log10_lanes(sqd_q[:, None], theta)[:, 0, :] * mask[:, None]
     return dot0(k_star, alpha.T)
+
+
+def nll_lanes_big(sqd, Y, theta, jitter_pow, mask, kernel=k_se_log10_lanes,
+                  dtype=None, pivot_floor=None, block=16):
+    """Masked GP NLL for B candidates at Gram sizes past the column loop's
+    reach: the contract of ``nll_lanes`` ((r, B) in f64, non-finite ->
+    +inf), built on the blocked factor and substitution. ``kernel`` is
+    ``k_se_log10_lanes`` or ``k_se_linear_lanes`` (GParareal's)."""
+    sqd, Y, theta, jitter_pow, mask = _cast(dtype, sqd, Y, theta,
+                                            jitter_pow, mask)
+    K = kernel(sqd, theta)
+    Kj = masked_gram_lanes(K, mask, jitter_pow)
+    L = cholesky_lanes_blocked(Kj, block=block, pivot_floor=pivot_floor)
+    Z = solve_lower_lanes_blocked(L, _targets(Y, mask), block=block)
+    quad = 0.5 * dot0(Z, Z)  # (r, B)
+    diag = torch.diagonal(L, dim1=0, dim2=1).T  # (m, B)
+    logdet = sum0(torch.where(mask[:, None] > 0, torch.log(diag), 0.0))
+    count = torch.sum(mask)
+    return _f64_or_inf(quad + logdet[None, :] + 0.5 * count * _LOG_2PI)

@@ -6,12 +6,14 @@ calculators, the Markdown/LaTeX tables ``print_times`` and
 and animation. matplotlib (with cycler and PillowWriter) is imported only
 inside the plotting functions: the calculators and tables need none of it.
 The mechanics helpers build their own toy Parareal with the port's
-classes, on the CPU unless ``device`` says otherwise: they are plotting
-helpers, not entry points of the solver.
+classes, on the CUDA card unless ``device`` says otherwise (``"cpu"``), as
+every entry point of the port: with no card and no ``device`` they raise.
 """
 
 import numpy as np
 import torch
+
+from nngparareal_torch.utils.device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -324,16 +326,19 @@ def plot_all_err(p, key):
     return figs
 
 
-def _mechanics_data(n_iters, N, device="cpu"):
+def _mechanics_data(n_iters, N, device=None):
     """Shared data prep for the Figure-1 mechanics figure/animation: runs
     plain Parareal with history on the paper's toy 1D ODE
     du/dt = -0.3 (t-5) u and precomputes the exact fine solution plus every
     per-slice fine trajectory F(u_i^k). Returns
     (t, hist, t_fine_grid, u_exact, fine_segs) where fine_segs[k][i] is
-    (ts, traj) for slice i at iteration k."""
+    (ts, traj) for slice i at iteration k. Runs on the card unless
+    ``device`` says otherwise, and raises when there is none."""
     from nngparareal_torch.systems.base import ODE
     from nngparareal_torch.solver import RKSolver
     from nngparareal_torch.driver import Parareal
+
+    device = resolve_device(device)
 
     class Ode1d(ODE):
         def __init__(self, **kwargs):
@@ -369,7 +374,7 @@ def _mechanics_data(n_iters, N, device="cpu"):
     return t, hist, t_fine_grid, u_exact, fine_segs
 
 
-def plot_parareal_mechanics(n_iters=3, N=10, path=None, device="cpu"):
+def plot_parareal_mechanics(n_iters=3, N=10, path=None, device=None):
     """Static equivalent of the reference's Figure-1 animation
     (Figure_1.py:17-285): the parareal mechanics on the paper's toy 1D
     ODE du/dt = -0.3 (t-5) u (a Gaussian-bump solution).
@@ -416,7 +421,7 @@ def plot_parareal_mechanics(n_iters=3, N=10, path=None, device="cpu"):
     return fig
 
 
-def animate_parareal_mechanics(path, n_iters=3, N=10, fps=2, device="cpu"):
+def animate_parareal_mechanics(path, n_iters=3, N=10, fps=2, device=None):
     """Animated equivalent of the reference's Figure-1
     (Figure_1.py:340-718): one GIF where each iteration's per-slice fine
     propagations F(u_i^k) appear one slice at a time (the reference

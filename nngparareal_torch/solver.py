@@ -3,7 +3,8 @@
 Port of ``nngparareal_tpu/solver.py:RKSolver``:
 
 * ``run_F`` / ``run_G`` integrate one slice;
-* ``run_F_batch`` integrates all slices at once: the fine fan-out;
+* ``run_F_batch`` integrates all slices at once: the fine fan-out
+  (``fine_batch_raw`` the same on its inputs' own device, for a mesh);
 * ``run_G_chain`` runs the sequential coarse initialisation over all slices;
 * ``coarse_step_raw`` is the coarse solve the corrector sweep calls for
   each interval, ``fine_step_raw`` its fine twin;
@@ -161,9 +162,17 @@ class RKSolver(SolverAbstr):
     @torch.inference_mode()
     def run_F_batch(self, t0s, t1s, U):
         """Fine-solve all slices at once: (B,), (B,), (B, n) -> (B, n)."""
-        t0s = self._t(t0s).contiguous()
-        t1s = self._t(t1s).contiguous()
-        U = self._t(U).contiguous()
+        return self.fine_batch_raw(self._t(t0s).contiguous(),
+                                   self._t(t1s).contiguous(),
+                                   self._t(U).contiguous())
+
+    @torch.inference_mode()
+    def fine_batch_raw(self, t0s, t1s, U):
+        """``run_F_batch`` on the inputs' own device (f64, contiguous): the
+        solver's fine arithmetic, the kernel when ``fine`` is 'cuda' (on a
+        CPU tensor its plain version) or the plain integrator, wherever the
+        batch lies. A device mesh runs each of its blocks through it
+        (``parallel/mesh.py:shard_fine_fanout``)."""
         if self.fine == "cuda":
             return rk_cuda.rk_fanout(t0s, t1s, U, self.F, self.Nf,
                                      self.device_field, self.f)

@@ -18,7 +18,10 @@ Parareal or the nnGP with the grid search.
   "host", and "fast" only where it dropped the fan-out's wait
   (driver.py's docstring).
 * Every ``sweep_mode`` and ``sync_mode`` gives the default run's iterates
-  bitwise; ``host_cpu``, unknown modes and ``mesh=`` raise with a reason.
+  bitwise; ``host_cpu`` and unknown modes raise with a reason.
+* ``mesh=`` (3 blocks on the CPU, so every fan-out is padded at some
+  iteration) gives the default run's iterates, and with ``debug`` its
+  truth errors, bitwise.
 * ``calc_detail_avg``: a (K, N) record, positive on exactly the intervals
   each sweep predicted, as JAX's host sweep records them.
 * ``PararealLight`` gives Parareal's run bitwise and JAX's K, keeps no
@@ -173,13 +176,28 @@ def test_modes_change_no_value(cut_runs, kw):
     (dict(sweep_mode="host_cpu"), ValueError, "IEEE"),
     (dict(sweep_mode="lanes"), ValueError, "sweep_mode"),
     (dict(sync_mode="never"), ValueError, "sync_mode"),
-    (dict(mesh=object()), NotImplementedError, "mesh"),
-], ids=["host_cpu", "unknown-sweep", "unknown-sync", "mesh"])
+], ids=["host_cpu", "unknown-sweep", "unknown-sync"])
 def test_refusals(kw, exc, match):
     _, pt = fhn_pair(edit=CUT)
     with pytest.raises(exc, match=match):
         pt.run(**BARE, **kw)
     assert pt.runs == {}
+
+
+def test_mesh_gives_the_default_run():
+    """The fine fan-out over 3 blocks on the CPU (16 slices: padded by 2,
+    then by every shortfall as slices converge), and the debug truth
+    through the same mesh: the iterates and the truth errors bitwise the
+    unsharded run's."""
+    _, pt = fhn_pair(edit=CUT)
+    mesh = nt.make_mesh(devices=["cpu"] * 3)
+    one = pt.run(**BARE, debug=True)
+    sharded = pt.run(**BARE, debug=True, mesh=mesh)
+    assert (sharded["k"], sharded["conv_int"]) == (one["k"], one["conv_int"])
+    np.testing.assert_array_equal(sharded["u"], one["u"])
+    for a, b in zip(sharded["debug_dict"]["all_pred_err"],
+                    one["debug_dict"]["all_pred_err"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_parareal_light(tmp_path):

@@ -7,20 +7,24 @@ and the command line ``main``.
   thresh, G, F, eps, u0) and the model keywords, GParareal's among them,
   are equal.
 * The default ``models`` (parareal, gpjax, nngp) and ``gp_kw`` reach
-  GParareal with the JAX driver's settings; ``mesh=`` is refused before
-  any model runs, naming ROADMAP.md.
+  GParareal with the JAX driver's settings; ``mesh=`` reaches every run,
+  and GParareal.
 * ``run_burgers_across_m`` threads each seed into the nnGP: the first
   sweep's Nelder-Mead starts are JAX's for every seed, differ between
   seeds, and repeat for a repeated seed.
 * ``main`` dispatches each experiment with JAX's arguments (the nnGP with
   Nelder-Mead, or the grid with ``--nngp-grid``; the default ``--models``
   with GParareal; ``--gp-f32`` and ``--gp-nm-iters`` into GParareal's
-  settings) and refuses, before any model runs and naming ROADMAP.md,
-  ``--mesh-devices`` and ``--pool``; ``--help`` says so.
+  settings), ``--mesh-devices k`` as a k-block mesh (on the CPU with
+  ``--device cpu``) and ``--pool k`` as run_table2's k workers (here an
+  in-process stand-in for the process pool, whose tasks must pickle);
+  ``--help`` says what each does.
 
 No model runs here: ``Parareal._parareal`` is stubbed where a call would
 run one. tests/test_torch_experiments_runs.py runs the drivers.
 """
+
+import pickle
 
 import numpy as np
 import pytest
@@ -31,6 +35,7 @@ from nngparareal_tpu import experiments as jexp
 
 from nngparareal_torch import driver as tdriver
 from nngparareal_torch import experiments as texp
+from nngparareal_torch.parallel import make_mesh
 
 
 def _capture(seen, name):
@@ -73,7 +78,6 @@ def test_driver_builds_the_jax_run(fn, kw, monkeypatch):
     getattr(texp, fn)(device="cpu", **args)
     j, t = seen["jax"], seen["torch"]
     pj, pt = j.pop("p"), t.pop("p")
-    j["common"].pop("mesh")  # multi-GPU sharding is not ported
     assert t == j
     _built(pj, pt)
 
@@ -97,19 +101,25 @@ def _check_gp(mdl, want, **extra):
 @pytest.mark.parametrize("fn", ["run_hopf", "run_tomlab", "run_burgers",
                                 "run_table2", "run_burgers_across_m"])
 def test_driver_refusals(fn, monkeypatch):
-    """mesh= is refused before any model runs. The default models
-    (parareal, gpjax, nngp) run GParareal with the JAX driver's settings,
-    and gp_kw, where the JAX driver takes it, overrides them."""
+    """mesh= reaches every run (and GParareal, which shards its grid
+    search over it). The default models (parareal, gpjax, nngp) run
+    GParareal with the JAX driver's settings, and gp_kw, where the JAX
+    driver takes it, overrides them."""
     runs = []
     monkeypatch.setattr(tdriver.Parareal, "_parareal", _record_models(runs))
     pos = {"run_hopf": (32,), "run_tomlab": (32,)}.get(fn, ())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(texp, fn)(*pos, results_dir=None, device="cpu",
-                          mesh=object())
-    assert runs == []
+    sel = dict(systems=["FHN_ODE"]) if fn == "run_table2" else {}
+    few = (dict(ms=[12], seeds=[3]) if fn == "run_burgers_across_m"
+           else {})
+    mesh = make_mesh(devices=["cpu"] * 2)
+    getattr(texp, fn)(*pos, results_dir=None, device="cpu", mesh=mesh,
+                      **sel, **few)
+    assert runs and all(kw["mesh"] is mesh for _, _, kw in runs)
+    assert all(m.mesh is mesh for _, m, _ in runs
+               if type(m).__name__ == "GParareal")
+    runs.clear()
     if fn == "run_burgers_across_m":
         return
-    sel = dict(systems=["FHN_ODE"]) if fn == "run_table2" else {}
     getattr(texp, fn)(*pos, results_dir=None, device="cpu", **sel)
     assert [type(m).__name__ for _, m, _ in runs] == [
         "BareParareal", "GParareal", "NNGParareal"]
@@ -209,8 +219,10 @@ MAIN_CASES = [
      dict(n_runs=6, gp=JAX_GP["run_table2"])),
     (["hopf", "--models", "parareal", "gpjax"],
      dict(n_runs=2, gp=JAX_GP["run_hopf"])),
-    (["table2", "--models", "nngp", "--mesh-devices", "2"], None),
-    (["table2", "--models", "nngp", "--pool", "2"], None),
+    (["table2", "--models", "gpjax", "--mesh-devices", "2", "--systems",
+      "FHN_ODE"], dict(n_runs=1, gp=JAX_GP["run_table2"], mesh=2)),
+    (["table2", "--models", "gpjax", "--pool", "2", "--systems", "FHN_ODE",
+      "Lorenz"], dict(n_runs=2, gp=JAX_GP["run_table2"], pool=2)),
     (["hopf", "--models", "gpjax", "--gp-f32"],
      dict(n_runs=1, gp=JAX_GP["run_hopf"], score_dtype=torch.float32)),
     (["tomlab", "--models", "gpjax", "--gp-nm-iters", "50"],
@@ -221,33 +233,70 @@ MAIN_CASES = [
 @pytest.mark.parametrize("argv,want", MAIN_CASES,
                          ids=[f"argv{i}" for i in range(len(MAIN_CASES))])
 def test_main_refusals(argv, want, monkeypatch):
-    """--mesh-devices and --pool are refused before any model runs; the
+    """--mesh-devices k runs on a k-block mesh (here of the CPU) that
+    reaches each run and GParareal; --pool k fans the systems over k
+    workers (an in-process stand-in here) in the systems' order; the
     default --models, gpjax, --gp-f32 and --gp-nm-iters reach GParareal
     with the JAX driver's settings."""
     runs = []
     monkeypatch.setattr(tdriver.Parareal, "_parareal", _record_models(runs))
-    args = argv + ["--device", "cpu", "--results-dir", "unused"]
-    if want is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            texp.main(args)
-        assert runs == []
-        return
-    texp.main(argv + ["--device", "cpu", "--results-dir", ""])
+    pools = []
+    monkeypatch.setattr("concurrent.futures.ProcessPoolExecutor",
+                        _in_process_pool(pools))
+    rows = texp.main(argv + ["--device", "cpu", "--results-dir", ""])
     assert len(runs) == want["n_runs"]
     gps = [m for _, m, _ in runs if type(m).__name__ == "GParareal"]
     assert gps
-    extra = {k: v for k, v in want.items() if k not in ("n_runs", "gp")}
+    extra = {k: v for k, v in want.items()
+             if k not in ("n_runs", "gp", "mesh", "pool")}
     for mdl in gps:
         _check_gp(mdl, want["gp"], **extra)
+    meshes = [kw["mesh"] for _, _, kw in runs]
+    if "mesh" in want:
+        mesh = meshes[0]
+        assert [str(d) for d in mesh.devices] == ["cpu"] * want["mesh"]
+        assert all(m is mesh for m in meshes)
+        assert all(m.mesh is mesh for m in gps)
+    else:
+        assert meshes == [None] * len(runs)
+    assert pools == ([(want["pool"], "spawn")] if "pool" in want else [])
+    if "pool" in want:
+        assert [r["system"] for r in rows] == argv[argv.index("--systems")
+                                                   + 1:]
+
+
+def _in_process_pool(made):
+    """A stand-in for ProcessPoolExecutor that records (max_workers, start
+    method) and maps in this process, where the stubbed driver records
+    the runs; each task goes through pickle, as it would to a worker."""
+    class Pool:
+        def __init__(self, max_workers, mp_context):
+            made.append((max_workers, mp_context.get_start_method()))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def map(self, fn, *iterables):
+            return [fn(*pickle.loads(pickle.dumps(args)))
+                    for args in zip(*iterables)]
+    return Pool
 
 
 def test_main_help_names_the_refusals(capsys):
+    """--help names every option and what it does; nothing is refused any
+    more."""
     with pytest.raises(SystemExit):
         texp.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    for word in ("--mesh-devices", "--pool", "ROADMAP.md", "Nelder-Mead",
+    for word in ("--mesh-devices", "over this many CUDA cards",
+                 "--device cpu, over that many blocks on the CPU", "--pool",
+                 "spawned worker processes", "Nelder-Mead",
                  "parareal, gpjax (GParareal) and nngp",
                  "--gp-f32 GParareal scores its candidates in f32",
                  "--gp-nm-iters GP_NM_ITERS GParareal's Nelder-Mead"):
         assert word in text, word
     assert "gpjax is refused" not in text
+    assert "refused" not in text and "ROADMAP" not in text

@@ -198,7 +198,6 @@ def test_run_fhn_pde_builds_the_jax_run(d_x, monkeypatch):
     texp.run_fhn_pde(d_x, device="cpu", **kw)
     j, t = seen["jax"], seen["torch"]
     pj, pt = j.pop("p"), t.pop("p")
-    j["common"].pop("mesh")  # multi-GPU sharding is not ported
     assert t == j
     sj, st = pj.solver, pt.solver
     Ng_tot = sj.Ng * pj.N

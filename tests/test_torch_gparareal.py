@@ -35,6 +35,7 @@ from nngparareal_tpu.models.base import Dataset as JDataset
 from nngparareal_tpu.models.gp import GParareal as JGP
 
 from nngparareal_torch.models import Dataset, GParareal
+from nngparareal_torch.parallel import make_mesh
 
 TOL = 1e-6  # the searches' fatol and xatol here
 SIZES = [(24, 32, 12), (100, 128, 50)]  # (valid rows, bucket, N)
@@ -182,10 +183,15 @@ def test_settings_and_refusals_match_jax():
                 "_grid_logs"):
         np.testing.assert_array_equal(getattr(t, key), getattr(j, key))
     assert t._refine_half_span == j._refine_half_span
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GParareal(3, 40, score_lanes=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GParareal(3, 40, mesh=object())
+    # score_lanes and a mesh are kept as the JAX package keeps them: a
+    # mesh of one device shards nothing
+    assert (GParareal(3, 40, score_lanes=True).score_lanes
+            == JGP(3, 40, score_lanes=True).score_lanes is True)
+    assert t.score_lanes is j.score_lanes is False
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert GParareal(3, 40, mesh=mesh).mesh is mesh
+    assert GParareal(3, 40, mesh=make_mesh(devices=["cpu"])).mesh is None
+    assert t.mesh is j.mesh is None
     with pytest.raises(ValueError):
         GParareal(3, 40, optimizer="lbfgs")
     with pytest.raises(ValueError):

@@ -150,7 +150,7 @@ def test_plots_render(pair, tmp_path):
 
 def test_mechanics_data_matches_jax():
     want = jrep._mechanics_data(2, 6)
-    got = trep._mechanics_data(2, 6)
+    got = trep._mechanics_data(2, 6, device="cpu")
     for g, w in zip(got[:4], want[:4]):
         np.testing.assert_allclose(g, w, rtol=1e-12, atol=0)
     assert len(got[4]) == len(want[4]) == 2
@@ -164,13 +164,31 @@ def test_mechanics_figure_and_animation(tmp_path, monkeypatch):
     import matplotlib.pyplot as plt
 
     monkeypatch.chdir(tmp_path)
-    fig = trep.plot_parareal_mechanics(n_iters=2, N=4, path="mech")
+    fig = trep.plot_parareal_mechanics(n_iters=2, N=4, path="mech",
+                                       device="cpu")
     assert len(fig.axes) == 2
     assert (tmp_path / "img" / "mech.png").exists()
-    out = trep.animate_parareal_mechanics("mech_anim", n_iters=1, N=4)
+    out = trep.animate_parareal_mechanics("mech_anim", n_iters=1, N=4,
+                                          device="cpu")
     assert out == os.path.join("img", "mech_anim.gif")
     assert os.path.getsize(out) > 1000
     plt.close("all")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: trep._mechanics_data(2, 6),
+    lambda: trep.plot_parareal_mechanics(n_iters=2, N=4),
+    lambda: trep.animate_parareal_mechanics("never", n_iters=1, N=4),
+], ids=["data", "plot", "animate"])
+def test_mechanics_run_on_the_card_by_default(call, monkeypatch, tmp_path):
+    """Fault 6: the mechanics helpers are entry points like the others.
+    Given no device they take the card, and with none they raise rather
+    than drop to the CPU."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    assert not (tmp_path / "img").exists()
 
 
 def test_store_payload_matches_jax(pair, tmp_path):

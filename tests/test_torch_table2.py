@@ -33,9 +33,10 @@ eps=5e-7:
   tests/test_parity_slow.py allows the JAX package (its CPU value is 13),
   in the method's spread at the rounding level, which the chip run's
   range takes in.
-* The refusals (``pool=`` and ``mesh=``), ``gpjax`` reaching GParareal
-  with the JAX driver's Table-2 settings, and the nnGP that names no
-  search: it runs Nelder-Mead, the JAX default.
+* ``pool=`` with ``mesh=`` refused (as in JAX), ``mesh=`` reaching each
+  run, ``gpjax`` reaching GParareal with the JAX driver's Table-2
+  settings, and the nnGP that names no search: it runs Nelder-Mead, the
+  JAX default.
 
 The helpers here also serve the other Table-2 files
 (tests/test_torch_table2_*.py).
@@ -54,6 +55,7 @@ from nngparareal_torch import driver as tdriver
 from nngparareal_torch import experiments as texp
 from nngparareal_torch.convert import load_checkpoint
 from nngparareal_torch.models import GParareal, NNGParareal
+from nngparareal_torch.parallel import make_mesh
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -314,12 +316,14 @@ class _Reached(Exception):
     """Raised where a stubbed run reaches a GP model."""
 
 
-def _stub_parareal(models):
-    """Parareal._parareal that records its model: an nnGP or a GParareal
-    stops the run there (_Reached), any other model returns an empty
-    result."""
+def _stub_parareal(models, kws=None):
+    """Parareal._parareal that records its model (and its keywords into
+    ``kws``): an nnGP or a GParareal stops the run there (_Reached), any
+    other model returns an empty result."""
     def run(self, model, **kw):
         models.append(model)
+        if kws is not None:
+            kws.append(kw)
         if isinstance(model, (NNGParareal, GParareal)):
             raise _Reached
         return {"k": 1, "converged": True, "conv_int": [], "err": None,
@@ -332,20 +336,24 @@ def _stub_parareal(models):
     (dict(models=("nngp",)), None),
     (dict(models=("parareal", "nngp"), nngp_kw=dict(nn=3)), None),
     (dict(models=("gpjax",), nngp_kw=GRID), "GParareal"),
-    (dict(models=MODELS, nngp_kw=GRID, pool=2), "pool"),
-    (dict(models=MODELS, nngp_kw=GRID, mesh=object()), "mesh"),
+    (dict(models=MODELS, nngp_kw=GRID, pool=2,
+          mesh=make_mesh(devices=["cpu"] * 2)), "pool"),
+    (dict(models=MODELS, nngp_kw=GRID, mesh=make_mesh(devices=["cpu"] * 2)),
+     "mesh"),
 ], ids=["kwargs0-None", "kwargs1-None", "kwargs2-ROADMAP", "kwargs3-pool",
         "kwargs4-mesh"])  # the ids these cases had when gpjax was refused
 def test_run_table2_refusals(kwargs, match, monkeypatch):
-    """Each refusal comes before any model runs. Without a search named
-    (``match`` None) nothing is refused: the first system's nnGP is built
-    with Nelder-Mead, the JAX default, and its neighbour count, or the
-    one ``nngp_kw`` gives. ``gpjax`` is not refused: it runs GParareal
-    with the JAX driver's Table-2 settings (Nelder-Mead, fatol = xatol =
-    1e-6, at most 400 iterations; ``nngp_kw`` is the nnGP's alone)."""
-    models = []
+    """``pool`` with ``mesh`` is refused before any model runs, with the
+    JAX package's ValueError. Without a search named (``match`` None)
+    nothing is refused: the first system's nnGP is built with
+    Nelder-Mead, the JAX default, and its neighbour count, or the one
+    ``nngp_kw`` gives. ``gpjax`` is not refused: it runs GParareal with
+    the JAX driver's Table-2 settings (Nelder-Mead, fatol = xatol = 1e-6,
+    at most 400 iterations; ``nngp_kw`` is the nnGP's alone). ``mesh``
+    reaches every run of the system."""
+    models, kws = [], []
     monkeypatch.setattr(tdriver.Parareal, "_parareal",
-                        _stub_parareal(models))
+                        _stub_parareal(models, kws))
     if match == "GParareal":
         with pytest.raises(_Reached):
             texp.run_table2(EPS, results_dir=None, device="cpu", **kwargs)
@@ -364,6 +372,13 @@ def test_run_table2_refusals(kwargs, match, monkeypatch):
         nn = (kwargs.get("nngp_kw") or {}).get("nn", NN["FHNODE"])
         assert (mdl.optimizer, mdl.nn, mdl.n_restarts) == ("nm", nn, 1)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    if match == "mesh":
+        with pytest.raises(_Reached):
+            texp.run_table2(EPS, results_dir=None, device="cpu", **kwargs)
+        assert [type(m).__name__ for m in models] == ["BareParareal",
+                                                      "NNGParareal"]
+        assert [kw["mesh"] for kw in kws] == [kwargs["mesh"]] * 2
+        return
+    with pytest.raises(ValueError, match="mutually exclusive"):
         texp.run_table2(EPS, results_dir=None, device="cpu", **kwargs)
     assert models == []
