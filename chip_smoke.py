@@ -6,14 +6,17 @@
 Phases, each printed as it ends with its seconds:
 
 1. env       torch and CUDA versions, the card, its power limit.
-2. build     nvcc builds the fan-out kernels from csrc/rk_fanout.cu (with
-             the tableaus of csrc/tableaus.cuh compiled in) and prints
-             ptxas' registers and spills of every instance (any spill
-             fails), each path instance's registers and resident blocks
-             per SM as the card reports them, and the latency probe: the
-             card's cycles per dependent f64 add, multiply, FMA, division
-             and sin, and per exchange round (store, barrier, load) of a
-             128- and a 256-thread block, with the clock they imply
+2. build     nvcc builds the fan-out kernels from csrc/rk_fanout.cu and
+             their double-single form from csrc/ds_fanout.cu, one nvcc
+             each, at once (with the tableaus of csrc/tableaus.cuh
+             compiled in), and prints ptxas' registers and spills of
+             every instance (any spill of the f64 kernels fails; the ds
+             kernel's are reported), each path instance's registers and
+             resident blocks per SM as the card reports them, and the
+             latency probe: the card's cycles per dependent f64 add,
+             multiply, FMA, division and sin, f32 add, multiply and
+             division, and per exchange round (store, barrier, load) of
+             a 128- and a 256-thread block, with the clock they imply
              beside nvidia-smi's clocks.sm.
 3. kernels   the kernels against their plain torch version, for each field
              at its path's shapes (max error relative to max|U| must be
@@ -89,7 +92,7 @@ Phases, each printed as it ends with its seconds:
              FHN once more with the grid search (gp_kw): K must be 5; its
              conv_int is printed beside the JAX package's on the CPU.
              Then cholesky_ex's time per batch of 162 at each bucket from
-             64 to 1024 rows, the cuSOLVER kernels it launched, and one
+             64 to 1024 rows (its kernels: phase 15), and one
              fit's search replayed from its graphs and run with eager
              launches: bitwise equal.
 9. figure2   the sixth path: study 1 of the paper's Figure 2
@@ -165,12 +168,33 @@ Phases, each printed as it ends with its seconds:
              Lorenz, bare Parareal, in two spawned processes on the card:
              K 11 and 15, conv_int and errors those of the table2 phase;
              the wall time.
-13. serial    the runs' converged iterates against fine solves, slice by
+13. ds       the double-single fan-out (ops/rk_cuda_ds.py,
+             csrc/ds_fanout.cu), the Pallas kernel's own arithmetic: (a)
+             for each of the nine fields at its path's shape and tableau
+             (the f64 kernels phase's), the ds kernel against its plain
+             torch version on the card at 20 steps: max |diff| at most
+             1e-13 max(1, max|U|) (0.0 expected: both round every ds
+             operation alone, in one order); (b) the ds kernel at the
+             path's full steps (FHN-PDE at 1/8 of them, the time scaled
+             by 8), timed with CUDA events, against the f64 kernel on the
+             same inputs (at most 1e-9) and its bound (``ds_bound``); (c)
+             the flagship with fine='pallas' through Parareal.run
+             (bench.py:90-121's configuration): K in 10-14, printed beside
+             the f64 flagship's K and the TPU's double-single K=12
+             (BENCH_r05.json), its fine/model/coarse split, its ds
+             launches (the only kernel of that path) and its final
+             iterate's gap to the f64 flagship's.
+14. serial    the runs' converged iterates against fine solves, slice by
              slice (atol 2e-5, as tests/test_parareal.py holds the JAX
              package): Burgers one slice after another from u0; FHN-PDE
              and each Table-2, figure2, variants and mesh run (every
              search and model) with one kernel fan-out from the converged
              starts.
+15. profile  the cuSOLVER kernels of one cholesky_ex call at 512 rows (the
+             table2_gp phase's batch) under torch.profiler, last: a CUDA
+             profiler session leaves every later launch of the process
+             slower, and the host microseconds per small torch op before
+             and after it are printed beside the kernels.
 
 Then one JSON line describing each kernel (its launches on its path's
 run, split by shape into fine fan-outs and coarse solves,
@@ -181,7 +205,7 @@ power limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {...}}. The drivers print each iteration; those
 lines go to chiprun_out/chip_smoke.log (git-ignored) with every line
 above, so the standard output holds the phases' lines only. A deadline
-at two thirds of the 1200 s the run is given stops it with an error that
+at five sixths of the 1200 s the run is given stops it with an error that
 names the running phase. Any failure exits nonzero and prints no result;
 so does a machine with no card, or a directory without the package.
 """
@@ -197,7 +221,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 LOG_DIR = "chiprun_out"  # git-ignored, as the output of GPU runs
 LIMIT_S = 1200
-DEADLINE_S = LIMIT_S * 2 // 3
+# the run stops itself here, naming its phase, well inside the limit: on
+# the slower hosts the phases before the ds phase alone took 670 s of an
+# H100 call, so two thirds of the limit no longer holds them
+DEADLINE_S = LIMIT_S * 5 // 6
 
 # NVIDIA H100 SXM data sheet: f64 without the tensor cores, and HBM3
 FP64_PEAK = 34e12
@@ -446,10 +473,15 @@ def phase_build(state):
     rk_cuda.build()
     build_s = time.perf_counter() - tic
     state["latency"] = latency = probe_latency()
+    ds_text = "".join(rk_cuda.ptxas_report_path(name).read_text()
+                      for name in rk_cuda.LIBRARIES if name != "rk_fanout")
     return {"library": os.path.relpath(lib, HERE), "fresh": fresh,
             "build_s": round(build_s, 3),
             "ptxas": ptxas_report(rk_cuda.ptxas_report_path().read_text()),
-            "occupancy": occupancy(), "latency": latency}
+            "ptxas_ds": ptxas_report(ds_text, PTXAS_FUNCTORS_DS,
+                                     strict=False),
+            "occupancy": occupancy(), "occupancy_ds": occupancy_ds(),
+            "latency": latency}
 
 
 # the exchange rounds probed: the per-cell kernel's block sizes on its paths
@@ -468,7 +500,8 @@ def probe_latency():
     from nngparareal_torch.ops import rk_cuda
 
     cycles, ms = {}, {}
-    for kind in ("add", "mul", "fma", "div", "sin"):
+    for kind in ("add", "mul", "fma", "div", "sin", "add_f32", "mul_f32",
+                 "div_f32"):
         rk_cuda.latency_probe(kind, n=1 << 12)  # warm
         cycles[kind], ms[kind] = rk_cuda.latency_probe(kind, n=PROBE_N)
     for threads in SYNC_THREADS:
@@ -491,10 +524,19 @@ PTXAS_FUNCTORS = (("FhnPdeField", "fhn_pde"), ("BurgersField", "burgers"),
                   ("ThomasLabyrinth", "tomlab"))
 
 
-def ptxas_report(text):
+# the double-single kernel's functors (csrc/ds_fanout.cu)
+PTXAS_FUNCTORS_DS = (("FhnPdeDs", "fhn_pde"), ("BurgersDs", "burgers"),
+                     ("FhnOdeDs", "fhn_ode"), ("RosslerDs", "rossler"),
+                     ("HopfDs", "hopf"), ("DblPendDs", "dblpend"),
+                     ("BrusselatorDs", "brusselator"), ("LorenzDs", "lorenz"),
+                     ("ThomasLabyrinthDs", "tomlab"))
+
+
+def ptxas_report(text, functors=PTXAS_FUNCTORS, strict=True):
     """Registers and spills of each kernel instance, keyed by field,
     tableau and (ODE fields) "map" or "raw", from ``-Xptxas -v`` output;
-    the probe's instances under "probe"."""
+    the probe's instances under "probe". ``strict``: any spill fails (the
+    f64 kernels); the ds kernel's spills are reported only."""
     report = {}
     key = None
     for ln in text.splitlines():
@@ -502,7 +544,7 @@ def ptxas_report(text):
         if m:
             name = m.group(1)
             tab = re.search(r"tableau\d+(RK\d+)", name)
-            field = next((f for functor, f in PTXAS_FUNCTORS
+            field = next((f for functor, f in functors
                           if functor in name), "probe")
             mapped = re.search(r"SliceField.*?Lb([01])E", name)
             key = "/".join([field, tab.group(1) if tab else name[-12:]]
@@ -516,7 +558,7 @@ def ptxas_report(text):
     spilling = [k for k, v in report.items()
                 if not re.search(r"0 bytes spill stores, 0 bytes spill loads",
                                  v.get("spills", ""))]
-    if not report or spilling:
+    if not report or (strict and spilling):
         raise PhaseError(f"ptxas: spills in {spilling} (or no report): "
                          f"{text.strip().splitlines()[-5:]}")
     return report
@@ -548,6 +590,17 @@ def occupancy():
         nt.Hopf(normalization="-11", device="cpu").get_device_field(), "RK8",
         512, 3)
     return out
+
+
+def occupancy_ds():
+    """The ds kernel's registers, local memory and blocks per SM at the
+    flagship's shape (rk_cuda_ds.kernel_attributes)."""
+    import nngparareal_torch as nt
+    from nngparareal_torch.ops import rk_cuda_ds
+
+    ode = nt.Burgers(d_x=FLAGSHIP["d_x"], normalization="-11", device="cpu")
+    return {"burgers/RK8": rk_cuda_ds.kernel_attributes(
+        ode.get_device_field(), "RK8", FLAGSHIP["N"], FLAGSHIP["d_x"])}
 
 
 def flops_per_thread_step(tab, field):
@@ -1411,30 +1464,60 @@ def gp_run_info(state, p, out, shapes):
 
 def cholesky_by_bucket(dev):
     """cholesky_ex (through ops.gp.cholesky_nan) on GP_CHOL_BATCH Grams at
-    each bucket: ms per batch; and the card's kernels of one call at 512
-    rows (cuSOLVER's batched potrf names its kernels *batch*)."""
+    each bucket: ms per batch (its kernels: ``phase_profile``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from nngparareal_torch.ops import gp as gpops
 
     g = torch.Generator(device="cpu").manual_seed(0)
     out = {}
-    names = []
     for B in GP_CHOL_BUCKETS:
         X = torch.rand((B, 3), generator=g, dtype=torch.float64).to(dev)
         Kj = _gp_grams(X, GP_CHOL_BATCH // 6, dev)
         out[str(B)] = _event_ms(lambda: gpops.cholesky_nan(Kj), 3)
-        if B == 512:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                gpops.cholesky_nan(Kj)
-                torch.cuda.synchronize()
-            names = sorted({e.key for e in prof.key_averages()
-                            if "potrf" in e.key})
         del Kj
     torch.cuda.empty_cache()
-    return {"batch": GP_CHOL_BATCH, "ms_by_bucket": out,
-            "potrf_kernels": [n[:60] for n in names],
-            "batched": any("atch" in n for n in names)}
+    return {"batch": GP_CHOL_BATCH, "ms_by_bucket": out}
+
+
+def _us_per_launch(dev, n=20000):
+    """Host microseconds per small torch op on the card (a chain of n
+    multiply-adds on 64 values, synchronised at both ends)."""
+    import torch
+
+    x = torch.rand(64, device=dev)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(n):
+        x = x * 1.0000001 + 1e-9
+    torch.cuda.synchronize()
+    return (time.perf_counter() - tic) / (2 * n) * 1e6
+
+
+def phase_profile(state):
+    """The card's kernels of one cholesky_ex call on GP_CHOL_BATCH Grams of
+    512 rows under torch.profiler (cuSOLVER's batched potrf names its
+    kernels *batch*). Last, because a CUDA profiler session leaves every
+    later launch of the process slower: the microseconds per small torch
+    op before and after the session are printed beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nngparareal_torch.ops import gp as gpops
+
+    dev = state["device"]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    X = torch.rand((512, 3), generator=g, dtype=torch.float64).to(dev)
+    Kj = _gp_grams(X, GP_CHOL_BATCH // 6, dev)
+    gpops.cholesky_nan(Kj)
+    _us_per_launch(dev, 2000)
+    before = _us_per_launch(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gpops.cholesky_nan(Kj)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if "potrf" in e.key})
+    after = _us_per_launch(dev)
+    return {"potrf_kernels": [n[:60] for n in names],
+            "batched": any("atch" in n for n in names),
+            "us_per_op_before": before, "us_per_op_after": after}
 
 
 def gp_graph_vs_eager(dev, p, out, iters=48):
@@ -2069,6 +2152,335 @@ def phase_mesh(state):
     return info
 
 
+# --- the double-single fan-out: ops/rk_cuda_ds.py, csrc/ds_fanout.cu
+
+# NVIDIA H100 SXM data sheet: f32 without the tensor cores (an FMA counted
+# as two operations); the ds kernel issues no FMA, so its operations go at
+# half that rate, as the f64 per-slice kernel's do
+FP32_PEAK = 67e12
+# the cut steps of the kernel against its plain version on the card, the
+# tolerance (of max(1, max|U|)), and the tolerance against the f64 kernel
+# at the full steps (tests/test_rk_ds.py: 3.3e-11 at the flagship's slice).
+# The plain version's eager ds ops cost ~0.4 s a step for DblPend on an
+# H100 (83.1 s for 200 steps; the seven ODE fields 118 s at 200 steps), so
+# the ODE fields are checked at 10 steps and the PDEs at 20
+DS_CHECK_STEPS = {"pde": 20, "ode": 10}
+DS_PLAIN_RTOL = 1e-13
+DS_F64_ATOL = 1e-9
+# FHN-PDE at full steps would take ~9 s in ds: one launch at 1/8 of them,
+# timed and scaled by 8
+DS_FHN_PDE_CUT = 8
+# the TPU's double-single flagship (BENCH_r05.json: fine_resolved
+# "pallas", K=12)
+TPU_DS_FLAGSHIP_K = 12
+
+# f32 operations of one ds operation of csrc/ds32.cuh: add (TwoSum 6, the
+# low parts 2, FastTwoSum 3), add of an f32, multiply (TwoProd 17, cross
+# terms 4, FastTwoSum 3), multiply by an f32, division (3 divisions, 2
+# multiplies by an f32, 2 subtractions, FastTwoSum, an add of an f32),
+# ds_axpy, ds_scale, and one reduction giving sin and cos (two ds Taylor
+# polynomials of 7 and 8 terms, the Cody-Waite reduction, the selection)
+DS_OPS = {"A": 11, "A32": 10, "M": 24, "M32": 22, "DV": 82, "AXPY": 38,
+          "SC": 27, "SINCOS": 630}
+# f32 operations of one ds field evaluation per kernel thread, counted
+# from csrc/ds_fanout.cu in those units; the ODE fields' [-1,1] map adds
+# DS_MAP_OPS per coordinate (A, DV, M, A before the raw field, M after)
+_O = DS_OPS
+DS_FIELD_OPS = {
+    "burgers": 4 * _O["A"] + _O["M32"] + 2 * _O["SC"] + _O["A32"] + _O["M"],
+    "fhn_pde": (4 * _O["A"] + 2 * (_O["M"] + 5 * _O["A"] + 2 * _O["DV"])
+                + 2 * (_O["M"] + _O["A"]) + 2 * _O["M"] + 4 * _O["A"]
+                + _O["M"]),
+    "fhn_ode": 5 * _O["M"] + _O["DV"] + 4 * _O["A"],
+    "rossler": 2 * _O["M"] + 4 * _O["A"],
+    "hopf": 4 * _O["M"] + _O["DV"] + 4 * _O["A"],
+    "dblpend": 3 * _O["SINCOS"] + 17 * _O["M"] + _O["DV"] + 8 * _O["A"],
+    "brusselator": 4 * _O["M"] + 3 * _O["A"],
+    "lorenz": 5 * _O["M"] + 4 * _O["A"],
+    "tomlab": 3 * (_O["SINCOS"] + 2 * _O["M"] + _O["A"]),
+}
+DS_MAP_OPS = 2 * _O["A"] + _O["DV"] + 2 * _O["M"]
+# Dependent f32 operations on the longest path from each state coordinate
+# (row) to each field component (column), counted from csrc/ds_fanout.cu
+# with the depths of csrc/ds32.cuh: add 9, multiply 12, scale 16, division
+# 51 and its three __fdiv_rn ("ddd"), sin or cos 210 (a reduction and a
+# Taylor polynomial of 7 or 8 Horner steps of 21). A PDE field has one row:
+# from its stage input (FHN-PDE's (v + 1) - 1 fold, 18, then the exchange)
+# to each of its values. None: no path.
+DS_FIELD_DEPTH = {
+    "fhn_ode": [["105ddd", "30"], ["21", "33"]],
+    "rossler": [[None, "9", "30"], ["9", "21", None], ["9", None, "21"]],
+    "hopf": [["51", "51", None], ["42", "42", None],
+             ["90ddd", "90ddd", None]],
+    "dblpend": [[None, "303ddd", None, "303ddd"], ["0", "75", None, "75"],
+                [None, "303ddd", None, "303ddd"], [None, "63", "0", "75"]],
+    "brusselator": [["42", "33"], ["30", "21"]],
+    "lorenz": [["21", "30", "21"], ["21", "18", "21"], [None, "21", "21"]],
+    "tomlab": [["21", None, "231"], ["231", "21", None],
+               [None, "231", "21"]],
+    "burgers": [["46"]],
+    "fhn_pde": [["144ddd", "138ddd"]],
+}
+# the [-1,1] map on each path of an ODE field: add, division, multiply,
+# add before the raw field, multiply after
+DS_MAP_DEPTH = "93ddd"
+# ds_axpy from k (a multiply by the coefficient's hi, its lo's cross term,
+# FastTwoSum, then the add into the sum) and from the running sum (the add)
+DS_AXPY_FROM_K = 25
+DS_AXPY_FROM_SUM = 9
+
+
+def ds_ops_per_thread_step(tab, field):
+    """f32 operations per ds kernel thread per RK step: one field
+    evaluation per stage (and the ODE fields' map), and ds_axpy for each
+    state value of the thread per nonzero a_ij and b_i."""
+    nz = (sum(1 for row in tab.a for x in row if x != 0.0)
+          + sum(1 for x in tab.b if x != 0.0))
+    ops = DS_FIELD_OPS[field.name]
+    if getattr(field, "mn", None) is not None:
+        ops += DS_MAP_OPS * field.values
+    return ops * tab.stages + field.values * nz * DS_OPS["AXPY"]
+
+
+def ds_chain_cycles(tab, field, lat, steps=64):
+    """The longest chain of dependent f32 operations through one ds RK
+    step in steady state, at the latencies ``lat`` (cycles of an f32 add
+    or multiply, "op"; of a __fdiv_rn, "div"; of the per-cell exchange,
+    "sync"). As ``chain_cycles``, in the kernel's order: stage s's input
+    is u plus its ds_axpy terms in increasing j (from k_j DS_AXPY_FROM_K
+    operations, from the sum DS_AXPY_FROM_SUM); the step's weight sum
+    starts at u and is the next u."""
+    per_cell = field.name in PER_CELL
+    depth = DS_FIELD_DEPTH[field.name]
+    mapped = getattr(field, "mn", None) is not None
+
+    def path(entry):
+        if entry is None:
+            return None
+        ops = int("".join(ch for ch in entry if ch.isdigit()))
+        divs = entry.count("d")
+        if mapped:
+            ops += int("".join(ch for ch in DS_MAP_DEPTH if ch.isdigit()))
+            divs += DS_MAP_DEPTH.count("d")
+        return ops * lat["op"] + divs * lat["div"]
+
+    L = [[path(e) for e in row] for row in depth]
+    op = lat["op"]
+    from_k = DS_AXPY_FROM_K * op
+    from_sum = DS_AXPY_FROM_SUM * op
+    S, D = tab.stages, len(L[0])
+    u = [0.0] * D
+    marks = []
+    for _ in range(steps):
+        acc = [list(u) for _ in range(S)]
+        out = list(u)
+        for s in range(S):
+            v = acc[s]
+            if per_cell:
+                ready = max(v) + lat["sync"]
+                k = [ready + L[0][c] for c in range(D)]
+            else:
+                k = [max([v[i] + L[i][c] for i in range(D)
+                          if L[i][c] is not None], default=0.0)
+                     for c in range(D)]
+            for i in range(s + 1, S):
+                if tab.a[i][s] != 0.0:
+                    acc[i] = [max(acc[i][c] + from_sum, k[c] + from_k)
+                              for c in range(D)]
+            if tab.b[s] != 0.0:
+                out = [max(out[c] + from_sum, k[c] + from_k)
+                       for c in range(D)]
+        u = out
+        marks.append(max(u))
+    half = steps // 2
+    return (marks[-1] - marks[half - 1]) / (steps - half)
+
+
+def ds_chain_latency(latency, field, d):
+    cyc = latency["cycles"]
+    return {"op": min(cyc["add_f32"], cyc["mul_f32"]),
+            "div": cyc["div_f32"],
+            "sync": cyc[f"sync{d // field.values}"]
+            if field.name in PER_CELL else 0.0}
+
+
+def ds_bound(tab, field, B, d, steps, latency):
+    """The least time of a ds fan-out, the largest of: f32 operations
+    (``ds_ops_per_thread_step``) over half the 67 TFLOP/s f32 peak (no
+    FMA: one operation an issue slot); the bytes (the f64 state read and
+    written once) over the memory rate; the chain (``ds_chain_cycles``)
+    at the probe's latencies over its clock."""
+    threads = B * (d // field.values)
+    ops = threads * steps * ds_ops_per_thread_step(tab, field)
+    times = {"operations": ops / (FP32_PEAK / 2) * 1e3,
+             "bytes": 16 * B * d / HBM_BYTES_PER_S * 1e3,
+             "chain": (steps * ds_chain_cycles(tab, field, ds_chain_latency(
+                 latency, field, d)) / latency["clock_hz"] * 1e3)}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": by, "f32_ops": ops,
+            "operations_ms": times["operations"], "bytes_ms": times["bytes"],
+            "chain_ms": times["chain"]}
+
+
+def ds_cases(dev):
+    """Each field's ds path shape: (key, ode, U, width, tableau, steps, B)
+    at the f64 kernels phase's shapes (Burgers the flagship's first
+    fan-out's states, FHN-PDE and the ODEs u0 plus a seeded perturbation
+    on slices of the configuration's width)."""
+    import numpy as np
+    import torch
+    import nngparareal_torch as nt
+    from nngparareal_torch.experiments import fhn_pde_parareal
+
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    cases = []
+    cfg = FLAGSHIP
+    ode = nt.Burgers(d_x=cfg["d_x"], normalization="-11", device=dev)
+    solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
+                         G=cfg["G"], F=cfg["F"], fine="torch", device=dev)
+    t = torch.linspace(0.0, cfg["T"], cfg["N"] + 1, dtype=torch.float64,
+                       device=dev)
+    U = solver.run_G_chain(t, ode.get_init_cond())[:-1].contiguous()
+    cases.append(("burgers", ode, U, (t[1] - t[0]).item(), cfg["F"],
+                  cfg["Nf"]))
+    p = fhn_pde_parareal(FHN_PDE_DX, device=dev)
+    rng = np.random.default_rng(0)
+    Up = p.ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0, (p.N, p.n))
+    cases.append(("fhn_pde", p.ode, as_t(Up),
+                  (p.tspan[1] - p.tspan[0]) / p.N, p.solver.F.name,
+                  p.solver.Nf))
+    for kind, (cls, N_arg) in ODE_SYSTEMS.items():
+        ode = getattr(nt, cls)(normalization="-11", device=dev)
+        c = nt.Config(ode, N=N_arg).get()
+        rng = np.random.default_rng(0)
+        Uo = ode.u0[None, :] + 0.05 * rng.uniform(-1.0, 1.0,
+                                                   (c["N"], ode.get_dim()))
+        cases.append((kind, ode, as_t(Uo),
+                      (c["tspan"][1] - c["tspan"][0]) / c["N"], c["F"],
+                      c["Nf"]))
+    return cases
+
+
+def ds_flagship(state):
+    """(c): bench.py:90-121's flagship with fine='pallas' through
+    Parareal.run; its launches counted alone."""
+    import numpy as np
+    import torch
+    import nngparareal_torch as nt
+
+    cfg = FLAGSHIP
+    dev = state["device"]
+    ode = nt.Burgers(d_x=cfg["d_x"], normalization="-11", device=dev)
+    solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
+                         G=cfg["G"], F=cfg["F"],
+                         fine_ds=ode.get_ds_vector_field(), fine="pallas",
+                         device_field=ode.get_device_field(), device=dev)
+    p = nt.Parareal(ode, solver, [0.0, cfg["T"]], cfg["N"],
+                    epsilon=cfg["eps"], device=dev)
+    zero_counts()
+    out = p.run(model="nngp", nn=cfg["nn"], seed=cfg["seed"],
+                optimizer="grid")
+    torch.cuda.synchronize()
+    launches = read_counts(state, "burgers_ds", "ds_flagship")
+    check_iterates("ds flagship", p, out)
+    _, f64_out = state["flagship"]
+    diff = float(np.abs(np.asarray(out["u"]) - np.asarray(f64_out["u"]))
+                 .max())
+    tm = out["timings"]
+    info = {"K": out["k"], "converged": out["converged"],
+            "conv_int": out["conv_int"], "K_f64": f64_out["k"],
+            "K_tpu_ds": TPU_DS_FLAGSHIP_K, "runtime_s": tm["runtime"],
+            "fine_s": tm["F_time"], "model_s": tm["mdl_pred_t"],
+            "coarse_s": tm["G_time"], "ds_launches": launches,
+            "max_abs_diff_vs_f64_flagship": diff}
+    if not out["converged"] or not K_RANGE[0] <= out["k"] <= K_RANGE[1]:
+        raise PhaseError(f"ds flagship: converged={out['converged']} K="
+                         f"{out['k']}, expected convergence with K in "
+                         f"{list(K_RANGE)}")
+    return info
+
+
+def phase_ds(state):
+    """The double-single fan-out (ops/rk_cuda_ds.py): (a) each field's ds
+    kernel against its plain version on the card at cut steps, (b) at its
+    path's full shape and steps, timed, against the f64 kernel on the
+    same inputs, (c) the flagship with fine='pallas'."""
+    import torch
+    from nngparareal_torch.ops import rk_cuda, rk_cuda_ds
+    from nngparareal_torch.ops.butcher import get_tableau
+
+    dev = state["device"]
+    info = {}
+    parts = {}
+    for key, ode, U, width, tab_name, steps in ds_cases(dev):
+        tic = time.perf_counter()
+        tab = get_tableau(tab_name)
+        field, f_ds = ode.get_device_field(), ode.get_ds_vector_field()
+        B, d = U.shape
+        dt_cut = width / steps
+        cut = DS_CHECK_STEPS["pde" if key in PER_CELL else "ode"]
+        # (a) at the cut steps, the same step width as the full run's
+        got = rk_cuda_ds.ds_fanout(U, tab, cut, dt_cut, field, f_ds)
+        torch.cuda.synchronize()
+        tic_p = time.perf_counter()
+        want = rk_cuda_ds.plain_fanout_ds(f_ds, tab, cut, U, dt_cut)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - tic_p) * 1e3
+        err = (got - want).abs().max().item()
+        tol = DS_PLAIN_RTOL * max(1.0, U.abs().max().item())
+        if not err <= tol:
+            raise PhaseError(f"{key} ds kernel vs plain at {cut} steps: max "
+                             f"|diff| {err:.3e} > {tol:.3e}")
+        # (b) full steps (FHN-PDE: 1/8 of them, the time scaled by 8),
+        # against the f64 kernel at the same width
+        full = steps // DS_FHN_PDE_CUT if key == "fhn_pde" else steps
+        scale = steps / full
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = rk_cuda_ds.ds_fanout(U, tab, full, dt_cut, field, f_ds)
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) * scale
+        t0s = torch.zeros(B, dtype=torch.float64, device=dev)
+        t1s = torch.full((B,), dt_cut * full, dtype=torch.float64,
+                         device=dev)
+        f64 = rk_cuda.rk_fanout(t0s, t1s, U, tab, full, field,
+                                ode.get_vector_field())
+        err64 = (got - f64).abs().max().item()
+        if not err64 <= DS_F64_ATOL:
+            raise PhaseError(f"{key} ds kernel vs f64 kernel at {full} "
+                             f"steps: max |diff| {err64:.3e} > "
+                             f"{DS_F64_ATOL}")
+        bnd = ds_bound(tab, field, B, d, steps, state["latency"])
+        if key == "burgers":
+            # the kernels line lists the ds kernel of the path this phase
+            # drives, the flagship's; the other fields' numbers are in the
+            # phase's line
+            state["kernels"]["burgers_ds"] = {
+                "name": f"ds_fanout[{key}]", "route": "cuda",
+                "source": "nngparareal_torch/csrc/ds_fanout.cu",
+                "replaces": "nngparareal_tpu/ops/rk_pallas.py:194",
+                "launches": None, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "plain_steps": cut, **bnd,
+                "library_ms": None, "shape": [B, d], "steps": steps,
+                "steps_timed": full, "tableau": tab.name,
+                "max_abs_err_vs_f64": err64}
+        info[key] = {"B": B, "d": d, "tableau": tab.name, "steps": steps,
+                     "max_abs_diff_plain": err, "plain_steps": cut,
+                     "plain_ms": plain_ms, "ms": ms, "steps_timed": full,
+                     "max_abs_diff_f64": err64,
+                     **{k: bnd[k] for k in ("bound_ms", "bound_by",
+                                            "chain_ms", "operations_ms",
+                                            "bytes_ms")}}
+        parts[key] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    info["flagship_pallas"] = ds_flagship(state)
+    parts["flagship_pallas"] = time.perf_counter() - tic
+    info["parts_s"] = parts
+    return info
+
+
 def phase_serial(state):
     import numpy as np
     import torch
@@ -2176,7 +2588,9 @@ def main():
         phases.run("variants", phase_variants, state)
         phases.run("api", phase_api, state)
         phases.run("mesh", phase_mesh, state)
+        phases.run("ds", phase_ds, state)
         phases.run("serial", phase_serial, state)
+        phases.run("profile", phase_profile, state)
     except Exception as exc:  # report the phase, exit nonzero
         signal.alarm(0)
         print(f"chip_smoke: FAILED in phase '{phases.current}': "

@@ -2,8 +2,10 @@
 
 Parareal, GParareal and nnGParareal for NVIDIA GPUs. Plain tensor code is PyTorch in
 float64; the fine fan-out, the JAX package's one Pallas TPU kernel, is a
-hand-written CUDA kernel (csrc/rk_fanout.cu) built with nvcc at first use
-and bound with ctypes. The package imports neither jax nor nngparareal_tpu.
+hand-written CUDA kernel in f64 (csrc/rk_fanout.cu) and, for
+``RKSolver(fine='pallas')``, in the Pallas kernel's own double-single
+arithmetic (csrc/ds_fanout.cu), each built with nvcc at first use and
+bound with ctypes. The package imports neither jax nor nngparareal_tpu.
 
 Entry points (the systems, ``RKSolver``, ``Parareal``) put their tensors
 on the CUDA card unless the caller passes ``device="cpu"``. ``make_mesh``

@@ -92,110 +92,12 @@
 #include <cmath>
 #include <type_traits>
 
+#include "rk_common.cuh"
 #include "tableaus.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 512;
-
-// ---------------------------------------------------------------------------
-// The tableau at compile time
-// ---------------------------------------------------------------------------
-
-// A tableau's coefficients and pattern, read in constant expressions (the
-// only way device code may read a constexpr array's elements).
-template <class T>
-__host__ __device__ constexpr double tab_a(int i, int j)
-{
-    return T::a[i][j];
-}
-template <class T>
-__host__ __device__ constexpr double tab_b(int i)
-{
-    return T::b[i];
-}
-template <class T>
-__host__ __device__ constexpr bool nz_a(int i, int j)
-{
-    return T::nz_a[i][j] != 0;
-}
-template <class T>
-__host__ __device__ constexpr bool nz_b(int i)
-{
-    return T::nz_b[i] != 0;
-}
-// The first nonzero a_ij of row i (-1: stage i's input is u), and the first
-// nonzero b_i: where a running sum takes its first term.
-template <class T>
-__host__ __device__ constexpr int first_a(int i)
-{
-    for (int j = 0; j < i; ++j) {
-        if (T::nz_a[i][j]) {
-            return j;
-        }
-    }
-    return -1;
-}
-template <class T>
-__host__ __device__ constexpr int first_b()
-{
-    for (int i = 0; i < T::S; ++i) {
-        if (T::nz_b[i]) {
-            return i;
-        }
-    }
-    return -1;
-}
-
-// The pattern is the coefficients' nonzeros, a is strictly lower
-// triangular, and some b_i is nonzero.
-template <class T>
-constexpr bool consistent()
-{
-    for (int i = 0; i < T::S; ++i) {
-        for (int j = 0; j < T::S; ++j) {
-            if ((T::a[i][j] != 0.0) != (T::nz_a[i][j] != 0)
-                || (j >= i && T::a[i][j] != 0.0)) {
-                return false;
-            }
-        }
-        if ((T::b[i] != 0.0) != (T::nz_b[i] != 0)) {
-            return false;
-        }
-    }
-    return first_b<T>() >= 0;
-}
-static_assert(consistent<tableau::RK1>() && consistent<tableau::RK2>()
-                  && consistent<tableau::RK4>() && consistent<tableau::RK8>(),
-              "tableaus.cuh: a pattern disagrees with its coefficients");
-
-// Calls fn(T{}) for the tableau whose id is `id`.
-template <class Fn>
-int with_tableau(int id, Fn&& fn)
-{
-    switch (id) {
-        case tableau::RK1::id:
-            return fn(tableau::RK1{});
-        case tableau::RK2::id:
-            return fn(tableau::RK2{});
-        case tableau::RK4::id:
-            return fn(tableau::RK4{});
-        case tableau::RK8::id:
-            return fn(tableau::RK8{});
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
-}
-
-// fn(integral_constant<int, I>) for I = Lo .. Hi-1, unrolled at compile time
-template <int Lo, int Hi, class Fn>
-__device__ __forceinline__ void unroll(Fn&& fn)
-{
-    if constexpr (Lo < Hi) {
-        fn(std::integral_constant<int, Lo>{});
-        unroll<Lo + 1, Hi>(fn);
-    }
-}
 
 // Stage I's input: its running sum, or u where row I of a is all zero.
 template <class T, int I, class Num, int D>
@@ -252,30 +154,6 @@ __device__ __forceinline__ void add_weight(Num (&bsum)[D], const Num (&k)[D])
             }
         }
     }
-}
-
-// The card's registers and occupancy for one kernel instance at a block
-// size: query[0] registers a thread, [1] local memory a thread (bytes:
-// spills), [2] resident blocks per SM, [3] the block size.
-template <class K>
-int attributes(K kernel, int threads, size_t shmem, int* query)
-{
-    cudaFuncAttributes fa;
-    cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-    if (err != cudaSuccess) {
-        return (int)err;
-    }
-    int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        threads, shmem);
-    if (err != cudaSuccess) {
-        return (int)err;
-    }
-    query[0] = fa.numRegs;
-    query[1] = (int)fa.localSizeBytes;
-    query[2] = blocks;
-    query[3] = threads;
-    return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -822,6 +700,9 @@ enum ProbeKind {
     kProbeDiv = 3,   // x = __ddiv_rn(x, c)
     kProbeSin = 4,   // x = __dadd_rn(sin(x), c)
     kProbeSync = 5,  // store, __syncthreads(), a neighbour's load
+    kProbeAddF32 = 6,  // f32 x = __fadd_rn(x, c): ds_fanout.cu's operations
+    kProbeMulF32 = 7,  // f32 x = __fmul_rn(x, c)
+    kProbeDivF32 = 8,  // f32 x = __fdiv_rn(x, c)
 };
 
 template <int K>
@@ -869,6 +750,21 @@ __global__ void latency_probe_kernel(long long n, double c,
             x = buf[1][nb];
         }
         t1 = clock64();
+    } else if constexpr (K == kProbeAddF32 || K == kProbeMulF32
+                         || K == kProbeDivF32) {
+        float xf = (float)x;
+        const float cf = (float)c;
+        t0 = clock64();
+        for (long long q = 0; q < n; q += kProbeUnroll) {
+#pragma unroll
+            for (int r = 0; r < kProbeUnroll; ++r) {
+                xf = K == kProbeAddF32   ? __fadd_rn(xf, cf)
+                     : K == kProbeMulF32 ? __fmul_rn(xf, cf)
+                                         : __fdiv_rn(xf, cf);
+            }
+        }
+        t1 = clock64();
+        x = xf;
     } else {
         const double e = c - 1.0;
         t0 = clock64();
@@ -920,6 +816,18 @@ extern "C" int rk_latency_probe_launch(int kind, long long n, int threads,
         case kProbeSin:
             latency_probe_kernel<kProbeSin><<<1, 1, 0, st>>>(n, c, cycles,
                                                              sink);
+            break;
+        case kProbeAddF32:
+            latency_probe_kernel<kProbeAddF32><<<1, 1, 0, st>>>(n, c, cycles,
+                                                                sink);
+            break;
+        case kProbeMulF32:
+            latency_probe_kernel<kProbeMulF32><<<1, 1, 0, st>>>(n, c, cycles,
+                                                                sink);
+            break;
+        case kProbeDivF32:
+            latency_probe_kernel<kProbeDivF32><<<1, 1, 0, st>>>(n, c, cycles,
+                                                                sink);
             break;
         case kProbeSync:
             latency_probe_kernel<kProbeSync><<<1, threads, 0, st>>>(

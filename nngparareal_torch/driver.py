@@ -65,11 +65,14 @@ batch), ``clear_plot_obj`` and the reporting delegates ``print_times``,
 package's does.
 
 ``mesh`` also reaches GParareal, which shards its grid search's task pool
-over the same devices. Left out: the "host_cpu" sweep (above), its AOT/compile-cache machinery (torch has no compile step
-here; its power-of-two fan-out buckets with it: the kernel takes any
-batch), the routing of the time-augmented nnGP's sweep to the CPU (a
-workaround for a TPU toolchain fault) and the double-single fine path
-(``fine='ds'``).
+over the same devices. With a mesh each block runs the solver's own fine
+arithmetic (``RKSolver.fine_batch_raw``), f64 or double-single
+(``fine='ds'`` or ``'pallas'``), as the JAX package threads its resolved
+fine arithmetic into each shard. Left out: the "host_cpu" sweep (above),
+its AOT/compile-cache machinery (torch has no compile step here; its
+power-of-two fan-out buckets with it: the kernel takes any batch), and
+the routing of the time-augmented nnGP's sweep to the CPU (a workaround
+for a TPU toolchain fault).
 """
 
 import os

@@ -19,6 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from nngparareal_torch.utils.device import resolve_device
+
 
 @dataclass
 class Dataset:
@@ -42,7 +44,10 @@ class Dataset:
         return int(self.X.shape[1])
 
     @staticmethod
-    def empty(capacity, n, dtype=torch.float64, device="cpu"):
+    def empty(capacity, n, dtype=torch.float64, device=None):
+        """A dataset of ``capacity`` zero rows of width ``n`` on ``device``
+        (None: the card, as every entry point; it raises without one)."""
+        device = resolve_device(device)
         return Dataset(
             X=torch.zeros((capacity, n), dtype=dtype, device=device),
             D=torch.zeros((capacity, n), dtype=dtype, device=device),

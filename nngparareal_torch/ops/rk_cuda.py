@@ -13,10 +13,11 @@ serves, and a system hands it that field's constants
   slice. The solver also launches it at B=1 for each coarse solve of these
   systems (solver.py:RKSolver.coarse_step_raw).
 
-Build and binding: ``nvcc`` compiles the source into a shared library with
-a plain C interface the first time the kernel is needed, into
-``nngparareal_torch/_build/<hash of sources and flags>/``; ``ctypes`` loads
-it. Nothing here includes PyTorch's C++ headers, so the build takes
+Build and binding: ``nvcc`` compiles each library of ``LIBRARIES`` (this
+kernel's, and the double-single fan-out's, csrc/ds_fanout.cu and
+ops/rk_cuda_ds.py, one per field), all at once, into a shared library
+with a plain C interface the first time a kernel is needed, into ``nngparareal_torch/_build/<hash of sources and
+flags>/``; ``ctypes`` loads it. Nothing here includes PyTorch's C++ headers, so the build takes
 seconds, and importing this module needs neither a card nor ``nvcc``.
 
 The tableau is compiled in (csrc/tableaus.cuh, generated from
@@ -40,7 +41,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -52,6 +53,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCE = CSRC / "rk_fanout.cu"
 TABLEAUS_H = CSRC / "tableaus.cuh"
+DS_SOURCE = CSRC / "ds_fanout.cu"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -113,6 +115,11 @@ class FhnPdeField:
     b: float
     k: float
     inv_tau: float
+    # the squared spacings, which the double-single field divides by
+    # (ops/rk_cuda_ds.py); the f64 kernel takes their inverses above, and
+    # they follow from the same grid, so equality does not read them
+    hx2: float = field(default=None, compare=False)
+    hy2: float = field(default=None, compare=False)
 
     name = "fhn_pde"
     values = 2  # both species of a cell in one thread
@@ -178,6 +185,17 @@ class OdeField:
 
 FIELDS = (BurgersField, FhnPdeField, OdeField)
 FIELD_NAMES = ("burgers", "fhn_pde", *ODE_DIMS)
+# the kernel libraries, name -> (source, nvcc's extra flags), each built by
+# its own nvcc, all at once: the f64 fan-out, and the double-single one
+# (ops/rk_cuda_ds.py) as one library per field (csrc/ds_fanout.cu's
+# DS_PART: its fields' RK8 instances take most of a build, and one nvcc
+# compiles them one after another)
+LIBRARIES = {"rk_fanout": (SOURCE, ()),
+             **{f"ds_fanout_{name}": (DS_SOURCE, (f"-DDS_PART={part}",))
+                for part, name in enumerate(FIELD_NAMES, 1)}}
+# the double-single fan-out's launches (ops/rk_cuda_ds.py) are counted
+# in ``rk_fanout``'s counts too, each field under its own key
+DS_FIELD_NAMES = tuple(f"{name}_ds" for name in FIELD_NAMES)
 
 
 def find_nvcc():
@@ -196,49 +214,60 @@ def find_nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path():
-    """Where the library for the current sources and flags lives: the key
-    hashes every file under csrc/, the .cu and any header it may include,
-    so that no edit there loads a stale library."""
+def library_path(name="rk_fanout"):
+    """Where the library ``name`` (a key of ``LIBRARIES``) for the current
+    sources and flags lives: the key hashes every file under csrc/, the
+    .cu files and any header they may include, so that no edit there
+    loads a stale library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     key = digest.hexdigest()[:16]
-    return BUILD_ROOT / key / "librk_fanout.so"
+    return BUILD_ROOT / key / f"lib{name}.so"
 
 
-def ptxas_report_path():
+def ptxas_report_path(name="rk_fanout"):
     """Where ``build`` keeps ptxas' report (``-Xptxas -v``: registers,
     stack and spills of each kernel instance) beside the library."""
-    return library_path().with_suffix(".ptxas.txt")
+    return library_path(name).with_suffix(".ptxas.txt")
 
 
 def build(timeout=600.0):
-    """Compile the kernel library unless it exists; return its path.
+    """Compile every kernel library that does not exist yet; return the
+    f64 fan-out's path.
 
-    The output is written under a temporary name and renamed into place, so
-    a build that is cut short leaves no library behind; ptxas' report is
-    written first (``ptxas_report_path``).
+    One ``nvcc`` per source, all started at once. Each output is written
+    under a temporary name and renamed into place, so a build that is cut
+    short leaves no library behind; ptxas' report is written first
+    (``ptxas_report_path``). A failed build raises.
     """
-    lib = library_path()
-    if lib.exists():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    todo = {name: library_path(name) for name in LIBRARIES
+            if not library_path(name).exists()}
+    procs = {}
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=timeout)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        ptxas_report_path().write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
+        for name, lib in todo.items():
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+            source, extra = LIBRARIES[name]
+            cmd = [find_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+                   str(source)]
+            procs[name] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        for name, (cmd, tmp, proc) in procs.items():
+            out, _ = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{out}")
+            ptxas_report_path(name).write_text(out)
+            os.replace(tmp, todo[name])
     finally:
-        tmp.unlink(missing_ok=True)
-    return lib
+        for cmd, tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+    return library_path()
 
 
 @functools.cache
@@ -246,7 +275,8 @@ def _library():
     """The C entry point of each field, by name: (t0s, t1s, U, out,
     tableau, B, <field's grid>, steps, <field's constants>, query,
     stream); and the latency probe."""
-    lib = ctypes.CDLL(str(build()))
+    build()
+    lib = ctypes.CDLL(str(library_path()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     head = [p, p, p, p, i, i]
     tail = [ctypes.POINTER(i), p]
@@ -363,15 +393,19 @@ def kernel_attributes(field, tableau, B, d, device=None):
 
 
 rk_fanout.launches = 0
-rk_fanout.launches_by_field = dict.fromkeys(FIELD_NAMES, 0)
+rk_fanout.launches_by_field = dict.fromkeys(FIELD_NAMES + DS_FIELD_NAMES, 0)
 rk_fanout.launches_by_shape = {}
 
 # the latency probe's chains (csrc/rk_fanout.cu:ProbeKind), each with the
 # constant c it runs with: x + c, x * c, fma(x, c, c - 1), x / c,
-# sin(x) + c, and the exchange round of the per-cell kernel
+# sin(x) + c, the exchange round of the per-cell kernel, and f32 x + c,
+# x * c and x / c (__fadd_rn, __fmul_rn, __fdiv_rn: the double-single
+# kernel's operations)
 PROBE_KINDS = {"add": (0, 1e-3), "mul": (1, 1.0 + 2.0 ** -30),
                "fma": (2, 1.0 + 2.0 ** -30), "div": (3, 1.0 + 2.0 ** -30),
-               "sin": (4, 1.5), "sync": (5, 0.5)}
+               "sin": (4, 1.5), "sync": (5, 0.5), "add_f32": (6, 1e-3),
+               "mul_f32": (7, 1.0 + 2.0 ** -20),
+               "div_f32": (8, 1.0 + 2.0 ** -20)}
 
 
 def latency_probe(kind, n=1 << 20, threads=1, device=None):

@@ -6,7 +6,8 @@ integrates its contiguous block of slices and XLA gathers the endpoints.
 Here a mesh is a tuple of torch devices, and ``shard_fine_fanout`` does
 the same by hand: each block moves to its device, its fan-out is queued
 on that device's current stream (the CUDA kernel on a card, the plain
-integrator on the CPU), every block is launched before any result is
+integrator on the CPU, in the solver's fine arithmetic, f64 or
+double-single), every block is launched before any result is
 gathered, so that separate cards run at once, and the blocks come back in
 order onto the mesh's first device.
 

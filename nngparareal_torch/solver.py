@@ -16,11 +16,13 @@ per slice, the coarse side delegated to an ``RKSolver``.
 
 Step counts Ng/Nf are per slice. The fine fan-out runs as the CUDA kernel
 (ops/rk_cuda.py) or as the plain torch f64 integrator (ops/rk.py), chosen
-by ``fine`` (see ``select_fine_mode``). On a card, an ODE's coarse solves
-(``coarse_step_raw``, ``run_G_chain``) launch the same kernel at B=1 with
-the coarse tableau: one launch per solve in place of a host loop of torch
-ops per RK step. The PDE fields keep the torch coarse step, and the CPU
-runs keep it for every system.
+by ``fine`` (see ``select_fine_mode``), or when asked for in double-single
+arithmetic: the plain ds integrator (ops/rk_ds.py, ``fine='ds'``) or the
+ds kernel (ops/rk_cuda_ds.py, ``fine='pallas'``). On a card, an ODE's
+coarse solves (``coarse_step_raw``, ``run_G_chain``) launch the f64
+kernel at B=1 with the coarse tableau: one launch per solve in place of
+a host loop of torch ops per RK step. The PDE fields keep the torch
+coarse step, and the CPU runs keep it for every system.
 """
 
 import torch
@@ -32,7 +34,12 @@ from nngparareal_torch.ops.rk import (
     make_last_integrator,
     make_traj_integrator,
 )
-from nngparareal_torch.ops import rk_cuda
+from nngparareal_torch.ops import ds32, rk_cuda
+from nngparareal_torch.ops.rk_cuda_ds import make_cuda_fanout_ds
+from nngparareal_torch.ops.rk_ds import (
+    integrate_last_ds,
+    make_batched_last_integrator_ds,
+)
 from nngparareal_torch.systems.base import numpy_field
 from nngparareal_torch.utils.device import resolve_device
 from nngparareal_torch.utils.timing import wall_timed
@@ -65,12 +72,18 @@ class SolverAbstr:
 
 
 def select_fine_mode(device, has_device_field):
-    """Pick the fine fan-out for ``device``: 'cuda' (the kernel) on a card,
-    'torch' (the plain integrator) on the CPU.
+    """Pick the fine fan-out for ``device``: 'cuda' (the f64 kernel) on a
+    card, 'torch' (the plain f64 integrator) on the CPU.
 
     The port's counterpart of ``nngparareal_tpu/solver.py:select_fine_mode``.
-    On a card a system without a device field has no fan-out yet: that
-    raises rather than running the plain version on the main path."""
+    That one picks double-single ('ds', or 'pallas' for d >= 64) on a TPU,
+    because the TPU has no f64 units: XLA emulates f64 in software, and
+    compensated f32 pairs were faster there. An H100 has IEEE f64 units,
+    so f64 is both the reference's arithmetic and the faster one, and
+    'auto' never picks double-single here (``fine='ds'`` or ``'pallas'``
+    asks for it). On a card a system without a device field has no
+    fan-out: that raises rather than running the plain version on the
+    main path."""
     if torch.device(device).type != "cuda":
         return "torch"
     if not has_device_field:
@@ -82,14 +95,35 @@ def select_fine_mode(device, has_device_field):
     return "cuda"
 
 
+FINE_MODES = ("auto", "f64", "ds", "pallas", "cuda", "torch")
+
+
 class RKSolver(SolverAbstr):
     def __init__(self, f, Ng, Nf, G="RK1", F="RK4", thresh=int(1e7),
-                 fine="auto", device_field=None, device=None):
-        """``fine``: 'auto' | 'cuda' | 'torch'. 'auto' resolves through
-        ``select_fine_mode``; 'cuda' is the kernel, which needs
-        ``device_field`` (``ode.get_device_field()``); 'torch' is the plain
-        f64 integrator of ``f``. On CPU tensors the kernel's wrapper itself
-        takes the plain version."""
+                 fine=None, device_field=None, device=None, fine_ds=None,
+                 fine_pallas=False):
+        """``fine``, the fine fan-out:
+
+        * 'auto' (the default): ``select_fine_mode``, 'cuda' on a card and
+          'torch' on the CPU;
+        * 'f64': the same f64 fan-out ('auto' never picks anything else);
+        * 'cuda': the f64 kernel (ops/rk_cuda.py), which needs
+          ``device_field`` (``ode.get_device_field()``); on CPU tensors its
+          wrapper takes its plain version;
+        * 'torch': the plain f64 integrator of ``f``, on any device;
+        * 'ds': the plain double-single integrator (ops/rk_ds.py) of
+          ``fine_ds``, on any device, only when asked for;
+        * 'pallas': the double-single kernel (ops/rk_cuda_ds.py), the
+          counterpart of the JAX package's Pallas kernel; it needs
+          ``fine_ds`` and ``device_field``, slices of one width and an
+          autonomous field; on CPU tensors it takes its plain version.
+
+        ``fine_ds`` is the double-single field
+        (``ode.get_ds_vector_field()``); 'ds' and 'pallas' raise without
+        it. ``fine_pallas=True`` with no ``fine`` means 'pallas', as in
+        the JAX package. In the double-single modes the fine fan-out,
+        ``run_F`` and ``fine_step_raw`` compute in double-single; the
+        trajectories and every coarse solve stay f64."""
         self.f = f
         self.Ng = int(Ng)
         self.Nf = int(Nf)
@@ -98,29 +132,47 @@ class RKSolver(SolverAbstr):
         self.thresh = int(thresh)
         self.device = resolve_device(device)
         self.device_field = device_field
-        if fine not in ("auto", "cuda", "torch"):
+        self.fine_ds = fine_ds
+        if fine is None:
+            fine = "pallas" if fine_pallas else "auto"
+        if fine not in FINE_MODES:
             raise ValueError(f"fine={fine!r}")
-        if fine == "auto":
+        if fine in ("ds", "pallas") and fine_ds is None:
+            raise ValueError(f"fine={fine!r} requires fine_ds "
+                             "(ode.get_ds_vector_field())")
+        if fine in ("auto", "f64"):
             fine = select_fine_mode(self.device, device_field is not None)
-        if fine == "cuda" and device_field is None:
-            raise ValueError("fine='cuda' requires device_field")
+        if fine in ("cuda", "pallas") and device_field is None:
+            raise ValueError(f"fine={fine!r} requires device_field")
         self.fine = fine
-        # the coarse solves through the kernel: an ODE field on a card
-        self.coarse_kernel = (fine == "cuda" and self.device.type == "cuda"
+        self.fine_pallas = fine == "pallas"
+        # the coarse solves through the f64 kernel: an ODE field on a card
+        self.coarse_kernel = (fine in ("cuda", "pallas")
+                              and self.device.type == "cuda"
                               and isinstance(device_field, rk_cuda.OdeField))
         self._coarse_bounds = {}
 
         self._coarse_last = make_last_integrator(f, self.G, self.Ng,
                                                  self.thresh)
         self._fine_last = make_last_integrator(f, self.F, self.Nf, self.thresh)
-        self._fine_plain = make_batched_last_integrator(f, self.F, self.Nf,
-                                                        self.thresh)
+        # the fan-out of every mode but 'cuda' (which fine_batch_raw calls
+        # itself)
+        if fine == "ds":
+            self._fine_fanout = make_batched_last_integrator_ds(
+                fine_ds, self.F, self.Nf, self.thresh)
+        elif fine == "pallas":
+            self._fine_fanout = make_cuda_fanout_ds(fine_ds, self.F, self.Nf,
+                                                    device_field)
+        else:
+            self._fine_fanout = make_batched_last_integrator(
+                f, self.F, self.Nf, self.thresh)
         self._fine_traj = make_traj_integrator(f, self.F, self.Nf)
         self._coarse_traj = make_traj_integrator(f, self.G, self.Ng)
 
     def prepare(self):
-        """Build the fine kernel now (outside any timed region)."""
-        if self.fine == "cuda" and self.device.type == "cuda":
+        """Build the fine kernels now (outside any timed region): both
+        libraries, the f64 fan-out's and the double-single one's."""
+        if self.fine in ("cuda", "pallas") and self.device.type == "cuda":
             rk_cuda.build()
 
     def _t(self, x):
@@ -130,7 +182,7 @@ class RKSolver(SolverAbstr):
 
     def run_F(self, t0, t1, u0):
         u0 = self._t(u0)
-        if self.fine == "cuda":
+        if self.fine != "torch":
             return self.run_F_batch(self._t([t0]), self._t([t1]), u0[None])[0]
         return self._fine_last(t0, t1, u0)
 
@@ -150,11 +202,15 @@ class RKSolver(SolverAbstr):
         return self._coarse_traj(self._t(t0), self._t(t1), self._t(u0))
 
     def fine_step_raw(self, t0, dt_slice, u0):
-        """One-slice fine solve as torch ops: the f64 branch of the JAX
-        package's ``fine_step_raw``. Its double-single branch (``fine='ds'``
-        and the Pallas kernel's arithmetic) is not ported yet (ROADMAP.md,
-        modules still to port)."""
+        """One-slice fine solve as torch ops, in the solver's fine
+        arithmetic: double-single in the 'ds' and 'pallas' modes (the
+        kernel's plain arithmetic, as the JAX package's), f64 otherwise."""
         dt = dt_slice / self.Nf
+        if self.fine in ("ds", "pallas"):
+            uh, ul = ds32.ds_from_f64(u0)
+            oh, ol = integrate_last_ds(self.fine_ds, self.F, t0, dt, self.Nf,
+                                       uh, ul)
+            return ds32.ds_to_f64(oh, ol)
         return integrate_last(self.f, self.F, t0, dt, self.Nf, u0)
 
     # --- batched API ---
@@ -169,14 +225,17 @@ class RKSolver(SolverAbstr):
     @torch.inference_mode()
     def fine_batch_raw(self, t0s, t1s, U):
         """``run_F_batch`` on the inputs' own device (f64, contiguous): the
-        solver's fine arithmetic, the kernel when ``fine`` is 'cuda' (on a
-        CPU tensor its plain version) or the plain integrator, wherever the
-        batch lies. A device mesh runs each of its blocks through it
-        (``parallel/mesh.py:shard_fine_fanout``)."""
+        solver's fine arithmetic, the f64 kernel when ``fine`` is 'cuda'
+        and the double-single kernel when it is 'pallas' (on a CPU tensor
+        each takes its plain version), or the plain f64 or double-single
+        integrator, wherever the batch lies. A device mesh runs each of its
+        blocks through it (``parallel/mesh.py:shard_fine_fanout``): a
+        slice is integrated alone, so the blocks give the unsharded
+        values."""
         if self.fine == "cuda":
             return rk_cuda.rk_fanout(t0s, t1s, U, self.F, self.Nf,
                                      self.device_field, self.f)
-        return self._fine_plain(t0s, t1s, U)
+        return self._fine_fanout(t0s, t1s, U)
 
     def coarse_step_raw(self, t0, dt_slice, u0):
         """One-slice coarse solve (called by the corrector sweep).

@@ -9,7 +9,9 @@ A system that the CUDA fan-out kernel can integrate also returns a
 *device field* (``get_device_field``): the kernel cannot run an arbitrary
 Python field, so it takes the field's constants instead. An ODE names its
 functor in the kernel (``device_kind``), and hands over its constants and
-its normalisation map.
+its normalisation map. The same device field serves the kernel's f64 and
+double-single forms. ``get_ds_vector_field`` is the field in
+double-single arithmetic, for ``RKSolver(fine_ds=...)``.
 """
 
 import numpy as np
@@ -50,6 +52,15 @@ class ODE:
             return raw(t, (u + 1.0) / 2.0 * span + mn) * scale
 
         return f_normalized
+
+    def get_ds_vector_field(self):
+        """The double-single (f32 pair) twin of the vector field for the
+        compensated fine solver (``RKSolver(fine_ds=...)``): the torch
+        field lifted by ops/ds_lift.py, ``f_ds(t, (uh, ul)) -> (kh, kl)``.
+        Burgers overrides it with its hand-fused field."""
+        from nngparareal_torch.ops.ds_lift import ds_lift
+
+        return ds_lift(self.get_vector_field())
 
     def get_vector_field_numpy(self):
         """Host/numpy twin of the field for scipy-based validation."""

@@ -7,9 +7,12 @@ periodic stencils are ``torch.roll`` over the grid axes, written over the
 last axes so that one state and a batch of slices go through the same
 field. The [-1,1]-normalised forms are also integrated by the CUDA fan-out
 kernel (ops/rk_cuda.py), which takes each field's constants as arguments
-(``get_device_field``). DiffReact has no kernel form (the JAX package
-never integrates it with its Pallas kernel either): it runs with the
-plain torch fan-out, ``RKSolver(..., fine="torch")``.
+(``get_device_field``), in f64 and in double-single; Burgers'
+double-single field is hand-fused (``get_ds_vector_field``), the others
+are lifted. DiffReact has no kernel form (the JAX package never
+integrates it with its Pallas kernel either): it runs with the plain
+torch fan-out, ``RKSolver(..., fine="torch")``, and its lifted ds field
+raises at its ``torch.matmul``.
 """
 
 import numpy as np
@@ -27,6 +30,17 @@ def _periodic_second_diff(n, h):
     T[0, -1] = 1.0
     T[-1, 0] = 1.0
     return T / (h * h)
+
+
+def _periodic_first_diff(n, h):
+    """(1/2h) * tridiag(-1, 0, 1) with periodic wrap."""
+    T = np.zeros((n, n))
+    idx = np.arange(n - 1)
+    T[idx, idx + 1] = 1.0
+    T[idx + 1, idx] = -1.0
+    T[0, -1] = -1.0
+    T[-1, 0] = 1.0
+    return T / (2.0 * h)
 
 
 class FHNPDE(ODE):
@@ -115,7 +129,8 @@ class FHNPDE(ODE):
         return FhnPdeField(d_x=self.d_x, d_y=self.d_y,
                            inv_hx2=1.0 / self._hx2, inv_hy2=1.0 / self._hy2,
                            a=self.A, b=self.B, k=self.K,
-                           inv_tau=1.0 / self.TAU)
+                           inv_tau=1.0 / self.TAU, hx2=self._hx2,
+                           hy2=self._hy2)
 
 
 class Burgers(ODE):
@@ -136,6 +151,14 @@ class Burgers(ODE):
         x = np.linspace(-1.0, 1.0, num=d)
         u0 = 0.5 * (np.cos(4.5 * np.pi * x) + 1.0)
         super().__init__(f"Burgers_{d_x}", mn, mx, u0, **kwargs)
+
+    def dense_operators(self):
+        """Reference-style (Dxx, Dx) dense matrices (test oracle)."""
+        h = self._h
+        return (
+            self.nu * _periodic_second_diff(self.d_x, h),
+            _periodic_first_diff(self.d_x, h),
+        )
 
     def _f(self, t, u):
         up = torch.roll(u, -1, dims=-1)  # u[i+1], periodic
@@ -160,6 +183,17 @@ class Burgers(ODE):
 
         return BurgersField(inv_h2=self._inv_h2,
                             half_inv_2h=0.5 * self._inv_2h)
+
+    def get_ds_vector_field(self):
+        """The hand-fused double-single twin of the normalised field
+        (ops/rk_ds.py:make_burgers_ds_field), as in the JAX package."""
+        if self.normalizer.norm_type != "-11":
+            raise NotImplementedError(
+                "ds field implemented for the [-1,1]-normalized form"
+            )
+        from nngparareal_torch.ops.rk_ds import make_burgers_ds_field
+
+        return make_burgers_ds_field(self)
 
 
 class DiffReact(ODE):

@@ -190,7 +190,7 @@ def test_unusable_fit_is_counted_and_stamped(capsys):
 def test_fit_on_an_all_invalid_dataset_is_silent(opt, capsys):
     n, cap = 2, 32
     t = GParareal(n, 9, optimizer=opt)
-    t.fit(Dataset.empty(cap, n), 0)
+    t.fit(Dataset.empty(cap, n, device="cpu"), 0)
     assert "posterior solve unusable" not in capsys.readouterr().out
     assert not t.alpha_unusable
     assert torch.isfinite(t.state[2]).all()

@@ -58,7 +58,7 @@ def test_gp_scipy_predicts_the_bare_correction_before_a_fit():
     m = GPScipy(2, 4)
     uF = torch.tensor([1.0, 2.0])
     uG = torch.tensor([0.5, 0.25])
-    ds = Dataset.empty(8, 2)
+    ds = Dataset.empty(8, 2, device="cpu")
     pred = m.predict_fn(ds, torch.zeros(2), uF, uG, 0)
     assert torch.equal(pred, uF - uG)
     m.fit(ds, 0)  # no valid rows

@@ -13,7 +13,8 @@ bitwise, the ELM within the CPU's control, the neighbour strategies'
 indices exactly, ``loo_lanes`` and the LU posterior, and one NNGPTime
 prediction from graphs bitwise its eager run; ``build_cont_traj`` on the
 card against its one-slice trajectories, the plain fan-out and the
-kernel. Run on a machine with one:
+kernel; the double-single kernel bitwise its plain version for every
+field, and the 'pallas' mode launching it. Run on a machine with one:
 ``python -m pytest -m gpu -p no:xdist tests/test_torch_gpu.py``.
 Without a card every test here skips.
 
@@ -227,7 +228,8 @@ def test_ode_coarse_solves_launch_the_kernel(name):
 
 @pytest.mark.parametrize("kind,threads", [
     ("add", 1), ("mul", 1), ("fma", 1), ("div", 1), ("sin", 1),
-    ("sync", 128), ("sync", 256),
+    ("sync", 128), ("sync", 256), ("add_f32", 1), ("mul_f32", 1),
+    ("div_f32", 1),
 ])
 def test_latency_probe_gives_finite_positive_cycles(kind, threads):
     dev = _card()
@@ -663,3 +665,50 @@ def test_cont_traj_on_card_is_the_plain_fanout():
         rows[:, -1], plain.run_F_batch(t[:-1], t[1:], u[:-1]).cpu().numpy())
     kernel = s.run_F_batch(t[:-1], t[1:], u[:-1]).cpu().numpy()
     assert np.abs(rows[:, -1] - kernel).max() <= RTOL * np.abs(u).max()
+
+
+DS_SYSTEMS = [("Burgers", {"d_x": 64}), ("FHNPDE", {"d_x": 8})] + [
+    (name, {}) for name in sorted(ODES)]
+
+
+@pytest.mark.parametrize("tab", ["RK4", "RK8"])
+@pytest.mark.parametrize("name,kw", DS_SYSTEMS,
+                         ids=[s[0] for s in DS_SYSTEMS])
+def test_ds_kernel_is_bitwise_its_plain_version(name, kw, tab):
+    """The double-single kernel (csrc/ds_fanout.cu) against its plain torch
+    version on the card, 10 steps at B=5: bitwise, since every ds
+    operation is rounded alone in the plain version's order; one launch,
+    counted under the field's ds key; near the f64 kernel."""
+    from nngparareal_torch.ops import rk_cuda_ds
+
+    dev = _card()
+    ode = getattr(nt, name)(normalization="-11", device=dev, **kw)
+    fld, f_ds = ode.get_device_field(), ode.get_ds_vector_field()
+    rng = np.random.default_rng(0)
+    U = torch.as_tensor(ode.u0[None, :] + 0.05 * rng.uniform(
+        -1.0, 1.0, (5, ode.get_dim())), dtype=torch.float64, device=dev)
+    before = rk_cuda.rk_fanout.launches_by_field[f"{fld.name}_ds"]
+    got = rk_cuda_ds.ds_fanout(U, tab, 10, 1e-3, fld, f_ds)
+    torch.cuda.synchronize()
+    assert rk_cuda.rk_fanout.launches_by_field[f"{fld.name}_ds"] == before + 1
+    want = rk_cuda_ds.plain_fanout_ds(f_ds, tab, 10, U, 1e-3)
+    assert torch.equal(got, want)
+    t0 = torch.zeros(5, dtype=torch.float64, device=dev)
+    f64 = rk_cuda.rk_fanout(t0, t0 + 1e-2, U, tab, 10, fld,
+                            ode.get_vector_field())
+    assert (got - f64).abs().max().item() <= 1e-12
+
+
+def test_pallas_mode_launches_the_ds_kernel():
+    dev = _card()
+    ode = nt.Lorenz(normalization="-11", device=dev)
+    s = nt.RKSolver(ode.get_vector_field(), 4, 50, G="RK1", F="RK4",
+                    fine="pallas", fine_ds=ode.get_ds_vector_field(),
+                    device_field=ode.get_device_field(), device=dev)
+    t = torch.linspace(0.0, 1.0, 9, dtype=torch.float64, device=dev)
+    U = ode.get_init_cond().expand(8, -1).contiguous()
+    before = dict(rk_cuda.rk_fanout.launches_by_field)
+    s.run_F_batch(t[:-1], t[1:], U)
+    after = rk_cuda.rk_fanout.launches_by_field
+    assert after["lorenz_ds"] == before["lorenz_ds"] + 1
+    assert after["lorenz"] == before["lorenz"]

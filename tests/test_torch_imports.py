@@ -28,6 +28,8 @@ _PROBE = textwrap.dedent("""
     import chip_smoke
     from nngparareal_torch.ops import rk_cuda
     assert rk_cuda.rk_fanout.launches == 0
+    assert {"nngparareal_torch.ops." + m for m in (
+        "ds32", "ds_lift", "rk_ds", "rk_cuda_ds")} <= set(names)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "nngparareal_tpu"))
     print(len(names), bad)

@@ -72,7 +72,7 @@ def test_same_inputs_give_jax_picks_bitwise():
             np.testing.assert_array_equal(a[1], b[1])
     # an empty dataset predicts the bare correction, drawing nothing
     empty = NNGPScipy(2, 40)
-    empty.fit(Dataset.empty(8, 2), 0)
+    empty.fit(Dataset.empty(8, 2, device="cpu"), 0)
     state = empty.rng.bit_generator.state
     uF = torch.tensor([1.0, 2.0], dtype=torch.float64)
     assert torch.equal(empty.predict_fn(None, zt, uF, 0.5 * uF, 0),

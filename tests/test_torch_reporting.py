@@ -191,6 +191,20 @@ def test_mechanics_run_on_the_card_by_default(call, monkeypatch, tmp_path):
     assert not (tmp_path / "img").exists()
 
 
+def test_dataset_empty_runs_on_the_card_by_default(monkeypatch):
+    """Fault 7: ``Dataset.empty`` given no device takes the card, as the
+    entry points do, and with none it raises rather than build on the
+    CPU."""
+    from nngparareal_torch.models.base import Dataset
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Dataset.empty(8, 2)
+    ds = Dataset.empty(8, 2, device="cpu")
+    assert ds.X.device.type == ds.D.device.type == "cpu"
+    assert tuple(ds.valid.shape) == (8,)
+
+
 def test_store_payload_matches_jax(pair, tmp_path):
     pj, pt = pair
     want = pj.store("jax.pkl", path=str(tmp_path), slim=True)
