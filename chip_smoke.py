@@ -14,8 +14,9 @@ Phases, each printed as it ends with its seconds:
              kernel's are reported), each path instance's registers and
              resident blocks per SM as the card reports them, and the
              latency probe: the card's cycles per dependent f64 add,
-             multiply, FMA, division and sin, f32 add, multiply and
-             division, and per exchange round (store, barrier, load) of
+             multiply, FMA, division and sin, f32 add, multiply,
+             division and FMA (the ds kernel's, ``ds_latency_cycles``),
+             and per exchange round (store, barrier, load) of
              a 128- and a 256-thread block, with the clock they imply
              beside nvidia-smi's clocks.sm.
 3. kernels   the kernels against their plain torch version, for each field
@@ -172,18 +173,23 @@ Phases, each printed as it ends with its seconds:
              csrc/ds_fanout.cu), the Pallas kernel's own arithmetic: (a)
              for each of the nine fields at its path's shape and tableau
              (the f64 kernels phase's), the ds kernel against its plain
-             torch version on the card at 20 steps: max |diff| at most
-             1e-13 max(1, max|U|) (0.0 expected: both round every ds
-             operation alone, in one order); (b) the ds kernel at the
+             torch version on the card at 20 steps (10 for the ODEs):
+             bitwise, max |diff| 0.0 (both round every ds operation
+             alone, in one order, or take an exact shortcut that gives
+             its bits: csrc/ds32.cuh); (b) the ds kernel at the
              path's full steps (FHN-PDE at 1/8 of them, the time scaled
              by 8), timed with CUDA events, against the f64 kernel on the
-             same inputs (at most 1e-9) and its bound (``ds_bound``); (c)
+             same inputs (at most 1e-9) and its bound (``ds_bound``),
+             each field's kernel an entry of the kernels line; (c)
              the flagship with fine='pallas' through Parareal.run
              (bench.py:90-121's configuration): K in 10-14, printed beside
              the f64 flagship's K and the TPU's double-single K=12
              (BENCH_r05.json), its fine/model/coarse split, its ds
              launches (the only kernel of that path) and its final
-             iterate's gap to the f64 flagship's.
+             iterate's gap to the f64 flagship's; (d) the per-slice
+             form's path: bare Parareal on Lorenz with fine='pallas',
+             K=15 as the api phase's f64 run, its ds launches (the f64
+             kernel's coarse solves counted apart).
 14. serial    the runs' converged iterates against fine solves, slice by
              slice (atol 2e-5, as tests/test_parareal.py holds the JAX
              package): Burgers one slice after another from u0; FHN-PDE
@@ -481,7 +487,9 @@ def phase_build(state):
             "ptxas_ds": ptxas_report(ds_text, PTXAS_FUNCTORS_DS,
                                      strict=False),
             "occupancy": occupancy(), "occupancy_ds": occupancy_ds(),
-            "latency": latency}
+            "latency": latency,
+            "ds_latency_cycles": {k: latency["cycles"][k] for k in (
+                "add_f32", "mul_f32", "fma_f32", "div_f32")}}
 
 
 # the exchange rounds probed: the per-cell kernel's block sizes on its paths
@@ -493,7 +501,8 @@ PROBE_N = 1 << 20
 def probe_latency():
     """The card's cycles per dependent operation (clock64() in one
     thread), for the chain bound: add, multiply, FMA, division, sin (less
-    the add that closes its chain), and the per-cell kernel's exchange
+    the add that closes its chain), the f32 add, multiply, division and
+    FMA of the double-single kernel, and the per-cell kernel's exchange
     round (store, barrier, a neighbour's load) in a block of each of
     SYNC_THREADS. The clock is the add chain's cycles over its time by
     CUDA events; nvidia-smi's clocks.sm is printed beside it."""
@@ -501,7 +510,7 @@ def probe_latency():
 
     cycles, ms = {}, {}
     for kind in ("add", "mul", "fma", "div", "sin", "add_f32", "mul_f32",
-                 "div_f32"):
+                 "div_f32", "fma_f32"):
         rk_cuda.latency_probe(kind, n=1 << 12)  # warm
         cycles[kind], ms[kind] = rk_cuda.latency_probe(kind, n=PROBE_N)
     for threads in SYNC_THREADS:
@@ -593,14 +602,27 @@ def occupancy():
 
 
 def occupancy_ds():
-    """The ds kernel's registers, local memory and blocks per SM at the
-    flagship's shape (rk_cuda_ds.kernel_attributes)."""
+    """The ds kernel's registers, local memory, blocks per SM and block
+    size at each field's path shape (rk_cuda_ds.kernel_attributes): the
+    flagship's, FHN-PDE's, and each ODE's fine fan-out (four lanes a slice
+    for DblPend and ThomasLabyrinth)."""
     import nngparareal_torch as nt
     from nngparareal_torch.ops import rk_cuda_ds
 
+    out = {}
     ode = nt.Burgers(d_x=FLAGSHIP["d_x"], normalization="-11", device="cpu")
-    return {"burgers/RK8": rk_cuda_ds.kernel_attributes(
-        ode.get_device_field(), "RK8", FLAGSHIP["N"], FLAGSHIP["d_x"])}
+    out["burgers/RK8"] = rk_cuda_ds.kernel_attributes(
+        ode.get_device_field(), "RK8", FLAGSHIP["N"], FLAGSHIP["d_x"])
+    ode = nt.FHNPDE(d_x=FHN_PDE_DX, normalization="-11", device="cpu")
+    out["fhn_pde/RK8"] = rk_cuda_ds.kernel_attributes(
+        ode.get_device_field(), "RK8", 512, ode.get_dim())
+    for kind, (cls, N_arg) in ODE_SYSTEMS.items():
+        ode = getattr(nt, cls)(normalization="-11", device="cpu")
+        cfg = nt.Config(ode, N=N_arg).get()
+        out[f"{kind}/{cfg['F']}/B={cfg['N']}"] = (
+            rk_cuda_ds.kernel_attributes(ode.get_device_field(), cfg["F"],
+                                         cfg["N"], ode.get_dim()))
+    return out
 
 
 def flops_per_thread_step(tab, field):
@@ -2155,17 +2177,18 @@ def phase_mesh(state):
 # --- the double-single fan-out: ops/rk_cuda_ds.py, csrc/ds_fanout.cu
 
 # NVIDIA H100 SXM data sheet: f32 without the tensor cores (an FMA counted
-# as two operations); the ds kernel issues no FMA, so its operations go at
-# half that rate, as the f64 per-slice kernel's do
+# as two operations); the ds kernel's operations are mostly unfused (its
+# only FMAs are TwoProd's error terms and the fixed divisions'
+# corrections), each an instruction slot, so they go at half that rate,
+# as the f64 per-slice kernel's do
 FP32_PEAK = 67e12
-# the cut steps of the kernel against its plain version on the card, the
-# tolerance (of max(1, max|U|)), and the tolerance against the f64 kernel
-# at the full steps (tests/test_rk_ds.py: 3.3e-11 at the flagship's slice).
+# the cut steps of the kernel against its plain version on the card (held
+# bitwise: max |diff| 0.0), and the tolerance against the f64 kernel at
+# the full steps (tests/test_rk_ds.py: 3.3e-11 at the flagship's slice).
 # The plain version's eager ds ops cost ~0.4 s a step for DblPend on an
 # H100 (83.1 s for 200 steps; the seven ODE fields 118 s at 200 steps), so
 # the ODE fields are checked at 10 steps and the PDEs at 20
 DS_CHECK_STEPS = {"pde": 20, "ode": 10}
-DS_PLAIN_RTOL = 1e-13
 DS_F64_ATOL = 1e-9
 # FHN-PDE at full steps would take ~9 s in ds: one launch at 1/8 of them,
 # timed and scaled by 8
@@ -2173,101 +2196,220 @@ DS_FHN_PDE_CUT = 8
 # the TPU's double-single flagship (BENCH_r05.json: fine_resolved
 # "pallas", K=12)
 TPU_DS_FLAGSHIP_K = 12
+# the per-slice form's path: bare Parareal on Lorenz with fine='pallas',
+# the K of the api phase's f64 run (API_LORENZ_K)
+DS_LORENZ_K = API_LORENZ_K
+# the fields whose ds kernel a path of the ds phase drives
+DS_PATHS = ("burgers", "lorenz")
 
-# f32 operations of one ds operation of csrc/ds32.cuh: add (TwoSum 6, the
-# low parts 2, FastTwoSum 3), add of an f32, multiply (TwoProd 17, cross
-# terms 4, FastTwoSum 3), multiply by an f32, division (3 divisions, 2
-# multiplies by an f32, 2 subtractions, FastTwoSum, an add of an f32),
-# ds_axpy, ds_scale, and one reduction giving sin and cos (two ds Taylor
-# polynomials of 7 and 8 terms, the Cody-Waite reduction, the selection)
-DS_OPS = {"A": 11, "A32": 10, "M": 24, "M32": 22, "DV": 82, "AXPY": 38,
-          "SC": 27, "SINCOS": 630}
-# f32 operations of one ds field evaluation per kernel thread, counted
-# from csrc/ds_fanout.cu in those units; the ODE fields' [-1,1] map adds
-# DS_MAP_OPS per coordinate (A, DV, M, A before the raw field, M after)
-_O = DS_OPS
-DS_FIELD_OPS = {
-    "burgers": 4 * _O["A"] + _O["M32"] + 2 * _O["SC"] + _O["A32"] + _O["M"],
-    "fhn_pde": (4 * _O["A"] + 2 * (_O["M"] + 5 * _O["A"] + 2 * _O["DV"])
-                + 2 * (_O["M"] + _O["A"]) + 2 * _O["M"] + 4 * _O["A"]
-                + _O["M"]),
-    "fhn_ode": 5 * _O["M"] + _O["DV"] + 4 * _O["A"],
-    "rossler": 2 * _O["M"] + 4 * _O["A"],
-    "hopf": 4 * _O["M"] + _O["DV"] + 4 * _O["A"],
-    "dblpend": 3 * _O["SINCOS"] + 17 * _O["M"] + _O["DV"] + 8 * _O["A"],
-    "brusselator": 4 * _O["M"] + 3 * _O["A"],
-    "lorenz": 5 * _O["M"] + 4 * _O["A"],
-    "tomlab": 3 * (_O["SINCOS"] + 2 * _O["M"] + _O["A"]),
-}
-DS_MAP_OPS = 2 * _O["A"] + _O["DV"] + 2 * _O["M"]
-# Dependent f32 operations on the longest path from each state coordinate
-# (row) to each field component (column), counted from csrc/ds_fanout.cu
-# with the depths of csrc/ds32.cuh: add 9, multiply 12, scale 16, division
-# 51 and its three __fdiv_rn ("ddd"), sin or cos 210 (a reduction and a
-# Taylor polynomial of 7 or 8 Horner steps of 21). A PDE field has one row:
-# from its stage input (FHN-PDE's (v + 1) - 1 fold, 18, then the exchange)
-# to each of its values. None: no path.
-DS_FIELD_DEPTH = {
-    "fhn_ode": [["105ddd", "30"], ["21", "33"]],
-    "rossler": [[None, "9", "30"], ["9", "21", None], ["9", None, "21"]],
-    "hopf": [["51", "51", None], ["42", "42", None],
-             ["90ddd", "90ddd", None]],
-    "dblpend": [[None, "303ddd", None, "303ddd"], ["0", "75", None, "75"],
-                [None, "303ddd", None, "303ddd"], [None, "63", "0", "75"]],
-    "brusselator": [["42", "33"], ["30", "21"]],
-    "lorenz": [["21", "30", "21"], ["21", "18", "21"], [None, "21", "21"]],
-    "tomlab": [["21", None, "231"], ["231", "21", None],
-               [None, "231", "21"]],
-    "burgers": [["46"]],
-    "fhn_pde": [["144ddd", "138ddd"]],
-}
-# the [-1,1] map on each path of an ODE field: add, division, multiply,
-# add before the raw field, multiply after
-DS_MAP_DEPTH = "93ddd"
-# ds_axpy from k (a multiply by the coefficient's hi, its lo's cross term,
-# FastTwoSum, then the add into the sum) and from the running sum (the add)
-DS_AXPY_FROM_K = 25
-DS_AXPY_FROM_SUM = 9
+# f32 operations of one ds operation of csrc/ds32.cuh (every intrinsic and
+# rintf; a division one, a negation none), as the header's host build
+# counts them (tests/test_torch_ds32_host.py): TwoProd by FMA, add, add of
+# an f32, multiply (TwoProd 2, cross terms 3, their add into the error 1,
+# FastTwoSum 3), multiply by an f32, division by a divisor that changes
+# (three __fdiv_rn), by a divisor fixed for the launch with one or two
+# corrections (div_by, straight-line), an exact power-of-two scaling,
+# ds_axpy, ds_scale, and one reduction giving sin and cos. The kernel's
+# first form took Dekker's TwoProd (17) and divided everywhere: 24 a
+# multiply, 82 a division, 38 a ds_axpy and 630 a sin_cos (PERF.md keeps
+# its bound).
+DS_OPS = {"two_prod": 2, "add": 11, "add_f32": 10, "mul": 9, "mul_f32": 7,
+          "div": 52, "div_by1": 58, "div_by2": 64, "pow2": 2, "axpy": 23,
+          "scale": 12, "sin_cos": 354}
+# Dependent f32 operations from each operand of a ds operation to its
+# result, "d" for each __fdiv_rn on the path (taken at its own latency),
+# counted by the same host build: e.g. ds_axpy from the running sum u 9,
+# from k 17
+DS_DEPTH = {"two_prod": {"a": "2"}, "add": {"x": "9", "y": "9"},
+            "add_f32": {"x": "9", "y": "9"}, "mul": {"x": "6", "y": "6"},
+            "mul_f32": {"x": "6", "y": "6"},
+            "div": {"x": "31ddd", "y": "31ddd"}, "div_by1": {"x": "40"},
+            "div_by2": {"x": "46"}, "pow2": {"x": "1"},
+            "axpy": {"u": "9", "k": "17"}, "scale": {"x": "10"},
+            "sin_cos": {"x": "136"}}
+
+
+def _depth_cost(entry, lat):
+    """The latency of a DS_DEPTH entry: its operations at lat["op"], its
+    divisions at lat["div"]."""
+    ops = int("".join(ch for ch in entry if ch.isdigit()) or 0)
+    return ops * lat["op"] + entry.count("d") * lat["div"]
+
+
+class _DsTrace:
+    """Evaluates a ds field's expression for its cost: each value is a
+    dict from input coordinate to the latest path from it (at the
+    latencies ``lat``), a constant None; ``ops`` sums the f32 operations
+    (DS_OPS) of the operations called."""
+
+    def __init__(self, lat):
+        self.lat = lat
+        self.ops = 0
+
+    def op(self, name, **operands):
+        self.ops += DS_OPS[name]
+        out = {}
+        for group, val in operands.items():
+            for src, t in (val or {}).items():
+                t += _depth_cost(DS_DEPTH[name][group], self.lat)
+                out[src] = max(out.get(src, t), t)
+        return out
+
+    def add(self, x, y):  # ds_add, ds_sub
+        return self.op("add", x=x, y=y)
+
+    def add32(self, x, y):
+        return self.op("add_f32", x=x, y=y)
+
+    def mul(self, x, y):
+        return self.op("mul", x=x, y=y)
+
+    def div(self, x, y):
+        return self.op("div", x=x, y=y)
+
+    def div_by(self, x, corrections):
+        return self.op(f"div_by{corrections}", x=x)
+
+    def pow2(self, x):
+        return self.op("pow2", x=x)
+
+    def scale(self, x):
+        return self.op("scale", x=x)
+
+    def sin_cos(self, x):
+        return self.op("sin_cos", x=x)
+
+
+# Each ds field of csrc/ds_fanout.cu as ``_DsTrace`` calls, in its own
+# expression's order: (t, u) -> f, with u and f lists of values. A lane
+# field's reductions count once each (its fourth lane's repeat is no work
+# the result needs), and the lanes' exchange is not on the path.
+def _ds_fhn_ode(t, u):
+    cube = t.mul(t.mul(u[0], u[0]), u[0])
+    return [t.mul(None, t.add(t.add(u[0], t.div_by(cube, 1)), u[1])),
+            t.mul(None, t.add(t.add(u[0], None), t.mul(None, u[1])))]
+
+
+def _ds_rossler(t, u):
+    return [t.add(u[1], u[2]), t.add(u[0], t.mul(None, u[1])),
+            t.add(None, t.mul(u[2], t.add(u[0], None)))]
+
+
+def _ds_hopf(t, u):
+    mu = t.add(t.add(t.div_by(u[2], 2), t.mul(u[0], u[0])),
+               t.mul(u[1], u[1]))
+    return [t.add(u[1], t.mul(u[0], mu)), t.add(u[0], t.mul(u[1], mu)),
+            None]
+
+
+def _ds_dblpend(t, u):
+    sd = cd = t.sin_cos(t.add(u[0], u[2]))
+    sin0, sin2 = t.sin_cos(u[0]), t.sin_cos(u[2])
+    sq1, sq3 = t.mul(u[1], u[1]), t.mul(u[3], u[3])
+    den_in = t.add(None, t.mul(cd, cd))
+    d1 = t.add(t.add(t.add(t.mul(t.mul(sq1, cd), sd), t.mul(sq3, sd)),
+                     t.pow2(sin0)), t.mul(cd, sin2))
+    d3 = t.add(t.add(t.add(t.mul(t.pow2(sq1), sd),
+                           t.mul(t.mul(sq3, sd), cd)),
+                     t.mul(t.pow2(cd), sin0)), t.pow2(sin2))
+    den = t.div(None, den_in)
+    return [u[1], t.mul(den, d1), u[3], t.mul(den, d3)]
+
+
+def _ds_brusselator(t, u):
+    sq = t.mul(t.mul(u[0], u[0]), u[1])
+    return [t.add(t.add(None, sq), t.pow2(u[0])),
+            t.add(t.mul(None, u[0]), sq)]
+
+
+def _ds_lorenz(t, u):
+    return [t.mul(None, t.add(u[1], u[0])),
+            t.add(t.add(t.mul(None, u[0]), u[1]), t.mul(u[0], u[2])),
+            t.add(t.mul(u[0], u[1]), t.mul(None, u[2]))]
+
+
+def _ds_tomlab(t, u):
+    s = [t.mul(None, t.sin_cos(u[c])) for c in range(3)]
+    return [t.add(t.pow2(u[c]), s[(c + 1) % 3]) for c in range(3)]
+
+
+def _ds_burgers(t, u):
+    # u: the stage input, its neighbours loaded after the exchange alike
+    v = vp = vm = u[0]
+    s = t.add(t.add(vp, vm), t.pow2(v))
+    x = t.scale(t.add(vp, vm))
+    return [t.add(t.scale(s), t.mul(t.add32(v, None), x))]
+
+
+def _ds_fhn_pde(t, u):
+    # the fold w = (v + 1) - 1 of each species before the exchange, then
+    # the two Laplacians of the loaded neighbours
+    w = [t.add(t.add(u[c], None), None) for c in range(2)]
+
+    def lap(g):
+        c2 = t.pow2(g)
+        return t.add(t.div_by(t.add(t.add(g, c2), g), 2),
+                     t.div_by(t.add(t.add(g, c2), g), 2))
+
+    u1, u2 = w
+    s1 = t.add(t.mul(lap(u1), None), u1)
+    s2 = t.add(t.mul(lap(u2), None), u1)
+    cube = t.mul(u1, t.mul(u1, u1))
+    return [t.add(t.add(t.add(s1, cube), u2), None),
+            t.mul(t.add(s2, u2), None)]
+
+
+DS_FIELDS = {"fhn_ode": _ds_fhn_ode, "rossler": _ds_rossler,
+             "hopf": _ds_hopf, "dblpend": _ds_dblpend,
+             "brusselator": _ds_brusselator, "lorenz": _ds_lorenz,
+             "tomlab": _ds_tomlab, "burgers": _ds_burgers,
+             "fhn_pde": _ds_fhn_pde}
+
+
+def ds_field_trace(field, lat):
+    """(f32 operations of one evaluation per kernel thread, paths): paths
+    [i][c] is the latest path from state coordinate i to component c at
+    the latencies ``lat`` (None: no path), through the ODE fields' [-1,1]
+    map where they have one, ((v + 1) halved) * span + mn before the raw
+    field and * scale after it. A per-cell field has one row, from its
+    stage input (the PDE fields: FHN-PDE's two species together)."""
+    t = _DsTrace(lat)
+    per_cell = field.name in PER_CELL
+    u = [{0 if per_cell else i: 0.0} for i in range(field.values)]
+    mapped = getattr(field, "mn", None) is not None
+    if mapped:
+        u = [t.add(t.mul(t.pow2(t.add(v, None)), None), None) for v in u]
+    f = DS_FIELDS[field.name](t, u)
+    if mapped:
+        f = [t.mul(v, None) if v is not None else None for v in f]
+    rows = 1 if per_cell else field.values
+    paths = [[(v or {}).get(i) for v in f] for i in range(rows)]
+    return t.ops, paths
 
 
 def ds_ops_per_thread_step(tab, field):
-    """f32 operations per ds kernel thread per RK step: one field
-    evaluation per stage (and the ODE fields' map), and ds_axpy for each
-    state value of the thread per nonzero a_ij and b_i."""
+    """f32 operations per ds kernel thread (per slice for the ODE fields)
+    per RK step: one field evaluation per stage (and the ODE fields' map),
+    and a ds_axpy for each state value of the thread per nonzero a_ij and
+    b_i."""
     nz = (sum(1 for row in tab.a for x in row if x != 0.0)
           + sum(1 for x in tab.b if x != 0.0))
-    ops = DS_FIELD_OPS[field.name]
-    if getattr(field, "mn", None) is not None:
-        ops += DS_MAP_OPS * field.values
-    return ops * tab.stages + field.values * nz * DS_OPS["AXPY"]
+    ops, _ = ds_field_trace(field, UNIT)
+    return ops * tab.stages + field.values * nz * DS_OPS["axpy"]
 
 
 def ds_chain_cycles(tab, field, lat, steps=64):
     """The longest chain of dependent f32 operations through one ds RK
-    step in steady state, at the latencies ``lat`` (cycles of an f32 add
-    or multiply, "op"; of a __fdiv_rn, "div"; of the per-cell exchange,
-    "sync"). As ``chain_cycles``, in the kernel's order: stage s's input
-    is u plus its ds_axpy terms in increasing j (from k_j DS_AXPY_FROM_K
-    operations, from the sum DS_AXPY_FROM_SUM); the step's weight sum
-    starts at u and is the next u."""
+    step in steady state, at the latencies ``lat`` (cycles of an f32 add,
+    multiply or FMA, "op"; of a __fdiv_rn, "div"; of the per-cell
+    exchange, "sync"). As ``chain_cycles``, in the kernel's order: stage
+    s's input is u plus its ds_axpy terms in increasing j (from k_j and
+    from the running sum, DS_DEPTH["axpy"]); the step's weight sum starts
+    at u and is the next u; the field's paths from ``ds_field_trace``."""
     per_cell = field.name in PER_CELL
-    depth = DS_FIELD_DEPTH[field.name]
-    mapped = getattr(field, "mn", None) is not None
-
-    def path(entry):
-        if entry is None:
-            return None
-        ops = int("".join(ch for ch in entry if ch.isdigit()))
-        divs = entry.count("d")
-        if mapped:
-            ops += int("".join(ch for ch in DS_MAP_DEPTH if ch.isdigit()))
-            divs += DS_MAP_DEPTH.count("d")
-        return ops * lat["op"] + divs * lat["div"]
-
-    L = [[path(e) for e in row] for row in depth]
-    op = lat["op"]
-    from_k = DS_AXPY_FROM_K * op
-    from_sum = DS_AXPY_FROM_SUM * op
+    _, L = ds_field_trace(field, lat)
+    from_k = _depth_cost(DS_DEPTH["axpy"]["k"], lat)
+    from_sum = _depth_cost(DS_DEPTH["axpy"]["u"], lat)
     S, D = tab.stages, len(L[0])
     u = [0.0] * D
     marks = []
@@ -2297,8 +2439,10 @@ def ds_chain_cycles(tab, field, lat, steps=64):
 
 
 def ds_chain_latency(latency, field, d):
+    """The probe's cycles as ds_chain_cycles takes them: the fastest f32
+    add, multiply or FMA, the __fdiv_rn, the per-cell exchange round."""
     cyc = latency["cycles"]
-    return {"op": min(cyc["add_f32"], cyc["mul_f32"]),
+    return {"op": min(cyc["add_f32"], cyc["mul_f32"], cyc["fma_f32"]),
             "div": cyc["div_f32"],
             "sync": cyc[f"sync{d // field.values}"]
             if field.name in PER_CELL else 0.0}
@@ -2306,10 +2450,10 @@ def ds_chain_latency(latency, field, d):
 
 def ds_bound(tab, field, B, d, steps, latency):
     """The least time of a ds fan-out, the largest of: f32 operations
-    (``ds_ops_per_thread_step``) over half the 67 TFLOP/s f32 peak (no
-    FMA: one operation an issue slot); the bytes (the f64 state read and
-    written once) over the memory rate; the chain (``ds_chain_cycles``)
-    at the probe's latencies over its clock."""
+    (``ds_ops_per_thread_step``) over half the 67 TFLOP/s f32 peak (one
+    operation an instruction slot: the peak counts an FMA as two); the bytes
+    (the f64 state read and written once) over the memory rate; the chain
+    (``ds_chain_cycles``) at the probe's latencies over its clock."""
     threads = B * (d // field.values)
     ops = threads * steps * ds_ops_per_thread_step(tab, field)
     times = {"operations": ops / (FP32_PEAK / 2) * 1e3,
@@ -2400,11 +2544,54 @@ def ds_flagship(state):
     return info
 
 
+def ds_lorenz(state):
+    """(d): the per-slice form's path, bare Parareal on Lorenz at its
+    Table-2 configuration with fine='pallas' through Parareal.run; the ds
+    kernel's launches counted (its coarse solves launch the f64 kernel at
+    B=1, counted apart); K as the f64 run's."""
+    import torch
+    import nngparareal_torch as nt
+    from nngparareal_torch.ops import rk_cuda
+
+    dev = state["device"]
+    ode = nt.Lorenz(normalization="-11", device=dev)
+    cfg = nt.Config(ode).get()
+    solver = nt.RKSolver(ode.get_vector_field(), cfg["Ng"], cfg["Nf"],
+                         G=cfg["G"], F=cfg["F"],
+                         fine_ds=ode.get_ds_vector_field(), fine="pallas",
+                         device_field=ode.get_device_field(), device=dev)
+    p = nt.Parareal(ode, solver, cfg["tspan"], cfg["N"], epsilon=5e-7,
+                    device=dev)
+    zero_counts()
+    out = p.run(model="parareal")
+    torch.cuda.synchronize()
+    counts = dict(rk_cuda.rk_fanout.launches_by_field)
+    others = {k: v for k, v in counts.items()
+              if v and k not in ("lorenz_ds", "lorenz")}
+    if counts["lorenz_ds"] < 1 or others:
+        raise PhaseError(f"ds Lorenz: the ds kernel must launch, and no "
+                         f"kernel but it and the f64 coarse solves: {counts}")
+    launches, shapes = record_launches(state, "lorenz_ds", "ds_lorenz")
+    coarse, _ = record_launches(state, "lorenz", "ds_lorenz")
+    check_iterates("ds Lorenz", p, out)
+    info = {"K": out["k"], "converged": out["converged"],
+            "conv_int": out["conv_int"], "runtime_s":
+            out["timings"]["runtime"], "fine_s": out["timings"]["F_time"],
+            "ds_launches": launches, "ds_launches_by_shape": shapes,
+            "f64_coarse_launches": coarse}
+    if not out["converged"] or out["k"] != DS_LORENZ_K:
+        raise PhaseError(f"ds Lorenz: converged={out['converged']} K="
+                         f"{out['k']}, expected {DS_LORENZ_K}")
+    return info
+
+
 def phase_ds(state):
     """The double-single fan-out (ops/rk_cuda_ds.py): (a) each field's ds
-    kernel against its plain version on the card at cut steps, (b) at its
-    path's full shape and steps, timed, against the f64 kernel on the
-    same inputs, (c) the flagship with fine='pallas'."""
+    kernel against its plain version on the card at cut steps, bitwise;
+    (b) at its path's full shape and steps, timed, against the f64 kernel
+    on the same inputs; (c) the flagship with fine='pallas' (the per-cell
+    form's path) and (d) Lorenz with fine='pallas' (the per-slice
+    form's). Each field's kernel is an entry of the kernels line."""
     import torch
     from nngparareal_torch.ops import rk_cuda, rk_cuda_ds
     from nngparareal_torch.ops.butcher import get_tableau
@@ -2427,10 +2614,9 @@ def phase_ds(state):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - tic_p) * 1e3
         err = (got - want).abs().max().item()
-        tol = DS_PLAIN_RTOL * max(1.0, U.abs().max().item())
-        if not err <= tol:
+        if not err == 0.0:
             raise PhaseError(f"{key} ds kernel vs plain at {cut} steps: max "
-                             f"|diff| {err:.3e} > {tol:.3e}")
+                             f"|diff| {err:.3e}, not bitwise")
         # (b) full steps (FHN-PDE: 1/8 of them, the time scaled by 8),
         # against the f64 kernel at the same width
         full = steps // DS_FHN_PDE_CUT if key == "fhn_pde" else steps
@@ -2453,19 +2639,18 @@ def phase_ds(state):
                              f"steps: max |diff| {err64:.3e} > "
                              f"{DS_F64_ATOL}")
         bnd = ds_bound(tab, field, B, d, steps, state["latency"])
-        if key == "burgers":
-            # the kernels line lists the ds kernel of the path this phase
-            # drives, the flagship's; the other fields' numbers are in the
-            # phase's line
-            state["kernels"]["burgers_ds"] = {
-                "name": f"ds_fanout[{key}]", "route": "cuda",
-                "source": "nngparareal_torch/csrc/ds_fanout.cu",
-                "replaces": "nngparareal_tpu/ops/rk_pallas.py:194",
-                "launches": None, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "plain_steps": cut, **bnd,
-                "library_ms": None, "shape": [B, d], "steps": steps,
-                "steps_timed": full, "tableau": tab.name,
-                "max_abs_err_vs_f64": err64}
+        # the kernels line: every field's ds kernel; its launches come from
+        # its path's run, (c) or (d), and stay 0 where no path drives it
+        state["kernels"][f"{key}_ds"] = {
+            "name": f"ds_fanout[{key}]", "route": "cuda",
+            "source": "nngparareal_torch/csrc/ds_fanout.cu",
+            "replaces": "nngparareal_tpu/ops/rk_pallas.py:194",
+            "form": "per cell" if key in PER_CELL else "per slice",
+            "launches": None if key in DS_PATHS else 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_steps": cut, **bnd, "library_ms": None, "shape": [B, d],
+            "steps": steps, "steps_timed": full, "tableau": tab.name,
+            "max_abs_err_vs_f64": err64}
         info[key] = {"B": B, "d": d, "tableau": tab.name, "steps": steps,
                      "max_abs_diff_plain": err, "plain_steps": cut,
                      "plain_ms": plain_ms, "ms": ms, "steps_timed": full,
@@ -2474,9 +2659,11 @@ def phase_ds(state):
                                             "chain_ms", "operations_ms",
                                             "bytes_ms")}}
         parts[key] = time.perf_counter() - tic
-    tic = time.perf_counter()
-    info["flagship_pallas"] = ds_flagship(state)
-    parts["flagship_pallas"] = time.perf_counter() - tic
+    for name, fn in (("flagship_pallas", ds_flagship),
+                     ("lorenz_pallas", ds_lorenz)):
+        tic = time.perf_counter()
+        info[name] = fn(state)
+        parts[name] = time.perf_counter() - tic
     info["parts_s"] = parts
     return info
 

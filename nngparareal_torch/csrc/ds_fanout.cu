@@ -19,7 +19,9 @@
 //     (v + 1) / 2 * 2 + (-1), and in ds the two differ at the floor at most);
 //   * ds_slice_kernel, one thread per slice, for the seven ODE fields,
 //     lifted from their torch fields (systems/odes.py) with the generic
-//     [-1,1] map of systems/base.py, or raw.
+//     [-1,1] map of systems/base.py, or raw; DblPend and ThomasLabyrinth
+//     take four lanes a slice and a rolled stage loop instead
+//     (ds_slice_rolled_kernel).
 //
 // As the Pallas kernel does, the step coefficients h*a_ij and h*b_i are
 // formed on the host in f64 from slice 0's width, split into pairs, and
@@ -27,8 +29,8 @@
 // the fields are autonomous, so no stage time is formed. Each stage's sum
 // starts at u and takes its terms (ds_axpy) in increasing j, and so does
 // the step's weight sum: rk_step_ds's order. As in rk_fanout.cu, a stage's
-// terms are added as soon as its k is ready (look-ahead), which reorders no
-// sum.
+// terms are added as soon as its k is ready (look-ahead, but in the rolled
+// form), which reorders no sum.
 //
 // The per-cell kernel exchanges each stage's input through shared memory as
 // float2 pairs, double-buffered, one barrier a stage; FHN-PDE stores the
@@ -36,11 +38,42 @@
 // state. Input and output are f64: each value is split into its pair on
 // load and joined on store (ds32.cuh:from_f64, to_f64).
 //
-// What bounds it (chip_smoke.py, the ds phase): the dependent chain. A ds
-// add is 9 dependent f32 operations, a ds multiply about 10 and a division
-// about 40, so one RK step of a slice is a chain some ten times the f64
-// kernel's; operations are the next bound for FHN-PDE. A simple kernel
-// that is right: no work went into its speed.
+// What bounds it, and what the design does about it. The bound
+// (chip_smoke.py:ds_bound) is the largest of the f32 operations over half
+// the 67 TFLOP/s peak, the bytes, and the ds chain at the latency probe's
+// f32 latencies, with each operation's count and depth taken from this
+// source by its host build (tests/test_torch_ds32_host.py). Every change
+// below keeps the plain version's bits (csrc/ds32.cuh's note). Measured on
+// an NVIDIA H100 80GB HBM3 at 700.00 W, in turns with the first form of
+// this kernel (time_kernels.py --ds and --sass; PERF.md section 6):
+//   * Fewer, shallower operations. TwoProd takes its error term by one FMA
+//     (2 operations, not Dekker's 17), so a ds multiply is 9 (6 deep) and a
+//     ds_axpy 23 (17 from k); a product with a power of two scales both
+//     parts; the [-1,1] map halves; FHN's 3, Hopf's maxtime and FHN-PDE's
+//     spacings are divisors fixed for the launch (ds32.cuh:ds_div_by).
+//   * No branch in the step loop but DblPend's division by 2 - cd^2, whose
+//     divisor changes (__fdiv_rn). A branch fences the scheduling of the
+//     code around it, and where its direction differs between the lanes of
+//     a warp it also runs both sides: the sines' quadrant and the lanes'
+//     arguments are picked by bit operations (ds32.cuh:pick).
+//   * Per cell, the flagship's Burgers (128 x 128, one block of 4 warps on
+//     each of 128 SMs) is bound by its chain, 11 exchange rounds a step,
+//     and by the instruction rate of one warp a scheduler; FHN-PDE
+//     (512 x 512) by its operations: 256-thread blocks, two an SM.
+//   * Per slice, one warp a scheduler at the path shapes (B <= 50): one
+//     slice's chain and its warp's instruction rate. DblPend's and
+//     ThomasLabyrinth's three reductions for sin and cos run on three of
+//     four lanes of the slice and are exchanged (lane_pair). The unrolled
+//     step of these two fields (140-215 KB of code at RK8) overflows the
+//     instruction cache and ran at 5.6 cycles an instruction, against
+//     1.3-1.7 for the other fields' RK4 steps of 15-26 KB: they roll the
+//     stage loop (ds_slice_rolled_kernel), one copy of the field's code,
+//     at the price of the look-ahead (a stage's input is summed after its
+//     last k).
+//   * Times at the path shapes, the first form's in brackets: Burgers
+//     73.1 ms (178.1) against a 60.2 ms bound, FHN-PDE 7.64 s (14.5)
+//     against 5.96 s, the ODE fields 0.46-87 ms (2.4-966 ms) at 30-100 %
+//     of their chain bounds.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +90,7 @@ using ds::Ds;
 constexpr int kMaxThreads = 512;
 constexpr int kSliceThreads = 64;
 constexpr int kMaxCoefs = 64;
+constexpr int kMaxStages = 16;
 
 // The (hi, lo) pair of an f64 constant, formed at compile time (a field's
 // literals) or on the host (its run-time constants): f32(x) and
@@ -112,6 +146,34 @@ static_assert(n_coefs<tableau::RK1>() == 1 && n_coefs<tableau::RK2>() == 2
                   && n_coefs<tableau::RK8>() == 44
                   && n_coefs<tableau::RK8>() <= kMaxCoefs,
               "the coefficient layout disagrees with rk_pallas.py's");
+
+// The same layout as lists, for a loop over the stages: row r's
+// coefficients are [start[r], start[r + 1]) (row 0 has none; row S is the
+// weights b_i), j[t] the stage whose k coefficient t multiplies. Ints: a
+// kernel reads a parameter's ints at a run-time index where it is (bytes
+// it would copy to local memory first).
+struct Terms {
+    int j[kMaxCoefs];
+    int start[kMaxStages + 2];
+};
+
+template <class T>
+Terms terms()
+{
+    static_assert(T::S + 2 <= kMaxStages + 2, "too many stages");
+    Terms tm{};
+    int t = 0;
+    for (int r = 0; r <= T::S; ++r) {
+        tm.start[r] = t;
+        for (int c = 0; c < (r < T::S ? r : T::S); ++c) {
+            if (r < T::S ? T::nz_a[r][c] != 0 : T::nz_b[c] != 0) {
+                tm.j[t++] = c;
+            }
+        }
+    }
+    tm.start[T::S + 1] = t;
+    return tm;
+}
 
 template <int I>
 __device__ __forceinline__ Ds coef(const Coefs& co)
@@ -187,6 +249,8 @@ struct BurgersDs {
         return {(i + 1 == n) ? 0 : i + 1, (i == 0) ? n - 1 : i - 1};
     }
 
+    __device__ __forceinline__ void prepare() {}
+
     // the value exchanged: the stage input itself
     __device__ __forceinline__ void prep(const Ds (&v)[V], Ds (&w)[V]) const
     {
@@ -201,7 +265,7 @@ struct BurgersDs {
         const Ds vp = load(sb, st.p);
         const Ds vm = load(sb, st.m);
         const Ds v = w[0];
-        const Ds s = ds_add(ds_add(vp, vm), ds_mul_f32(v, -2.0f));
+        const Ds s = ds_add(ds_add(vp, vm), ds_pow2(v, -2.0f));
         const Ds xx = ds_scale(s, c2);
         const Ds x = ds_scale(ds_sub(vp, vm), c1);
         out[0] = ds_sub(xx, ds_mul(ds_add_f32(v, 1.0f), x));
@@ -213,11 +277,20 @@ struct BurgersDs {
 // ((g_n - 2g) + g_s) / hy2,
 //     U = ((L(u1) * a + u1) - u1^3 - u2) + k
 //     V = ((L(u2) * b + u1) - u2) * inv_tau
-// with u1^3 = u1 * (u1 * u1) (ds_lift.py:_pow_ds).
+// with u1^3 = u1 * (u1 * u1) (ds_lift.py:_pow_ds). The two spacings are
+// divisors fixed for the launch (ds32.cuh:ds_div_by), 2g is ds_pow2.
 struct FhnPdeDs {
     static constexpr int V = 2;
     int d_x, d_y;
-    Ds hx2, hy2, a, b, k, inv_tau;
+    ds::Divisor hx2, hy2;
+    Ds a, b, k, inv_tau;
+
+    // the spacings' reciprocals, on the card, before the step loop
+    __device__ __forceinline__ void prepare()
+    {
+        hx2 = ds::divisor(hx2.y);
+        hy2 = ds::divisor(hy2.y);
+    }
 
     struct Stencil {
         int e, w, nn, s;  // x+1, x-1, y+1, y-1, periodic
@@ -247,11 +320,11 @@ struct FhnPdeDs {
                                       const Stencil& st) const
     {
         using namespace ds;
-        const Ds c2 = ds_mul(pair(2.0), c);
-        const Ds gxx = ds_div(ds_add(ds_sub(load(g, st.e), c2),
-                                     load(g, st.w)), hx2);
-        const Ds gyy = ds_div(ds_add(ds_sub(load(g, st.nn), c2),
-                                     load(g, st.s)), hy2);
+        const Ds c2 = ds_pow2(c, 2.0f);
+        const Ds gxx = ds_div_by<2>(ds_add(ds_sub(load(g, st.e), c2),
+                                           load(g, st.w)), hx2);
+        const Ds gyy = ds_div_by<2>(ds_add(ds_sub(load(g, st.nn), c2),
+                                           load(g, st.s)), hy2);
         return ds_add(gxx, gyy);
     }
 
@@ -282,7 +355,9 @@ ds_cells_kernel(const double* __restrict__ U, double* __restrict__ out,
     const int slice = blockIdx.x;
     const int i = threadIdx.x;
     const int n = blockDim.x;  // cells per slice
-    const typename F::Stencil st = field.stencil(i, n);
+    F f = field;
+    f.prepare();
+    const typename F::Stencil st = f.stencil(i, n);
     const size_t base = (size_t)slice * V * n + i;
 
     Ds u[V];
@@ -300,13 +375,13 @@ ds_cells_kernel(const double* __restrict__ U, double* __restrict__ out,
             constexpr int s = decltype(s_)::value;
             Ds v[V], w[V], k[V];
             stage_input<T, s>(v, u, acc);
-            field.prep(v, w);
+            f.prep(v, w);
 #pragma unroll
             for (int c = 0; c < V; ++c) {
                 sb[c * n + i] = make_float2(w[c].hi, w[c].lo);
             }
             __syncthreads();
-            field.eval(sb, n, st, w, k);
+            f.eval(sb, n, st, w, k);
             float2* const done = sb;
             sb = sb_next;
             sb_next = done;
@@ -365,28 +440,45 @@ int launch_cells(const double* U, double* out, int tab, int B, int n,
 }
 
 // ---------------------------------------------------------------------------
-// One thread per slice: the ODE fields, lifted from systems/odes.py
+// One thread per slice (or kLanes): the ODE fields, lifted from
+// systems/odes.py
 // ---------------------------------------------------------------------------
 
 // Each raw field in its torch expression's order; a literal c is the pair
-// of c (ds_mul, not ds_mul_f32), a division ds_div.
+// of c (ds_mul, not ds_mul_f32; ds_pow2 for a power of two), a division
+// ds_div, or ds_div_by for a divisor fixed for the launch. prepare() forms
+// a field's divisors on the card before the step loop.
+
+// The pair x of lane `src` of this thread's group of L lanes (the lanes of
+// one slice): two exchanges.
+template <int L>
+__device__ __forceinline__ Ds lane_pair(Ds x, int src)
+{
+    return {__shfl_sync(0xffffffffu, x.hi, src, L),
+            __shfl_sync(0xffffffffu, x.lo, src, L)};
+}
 
 struct FhnOdeDs {
+    static constexpr int kLanes = 1;
     static constexpr int D = 2;
+    ds::Divisor c3;
+    __device__ __forceinline__ void prepare() { c3 = ds::divisor(pair(3.0)); }
     __device__ __forceinline__ void operator()(const Ds (&u)[D],
                                                Ds (&f)[D]) const
     {
         using namespace ds;
         constexpr Ds a = pair(0.2), b = pair(0.2), c = pair(3.0),
-                     c3 = pair(3.0), m = pair(-(1.0 / 3.0));
+                     m = pair(-(1.0 / 3.0));
         const Ds cube = ds_mul(ds_mul(u[0], u[0]), u[0]);
-        f[0] = ds_mul(c, ds_add(ds_sub(u[0], ds_div(cube, c3)), u[1]));
+        f[0] = ds_mul(c, ds_add(ds_sub(u[0], ds_div_by<1>(cube, c3)), u[1]));
         f[1] = ds_mul(m, ds_add(ds_sub(u[0], a), ds_mul(b, u[1])));
     }
 };
 
 struct RosslerDs {
+    static constexpr int kLanes = 1;
     static constexpr int D = 3;
+    __device__ __forceinline__ void prepare() {}
     __device__ __forceinline__ void operator()(const Ds (&u)[D],
                                                Ds (&f)[D]) const
     {
@@ -398,14 +490,20 @@ struct RosslerDs {
     }
 };
 
+// maxtime: the end of the system's tspan, a divisor fixed for the launch.
 struct HopfDs {
+    static constexpr int kLanes = 1;
     static constexpr int D = 3;
-    Ds maxtime;
+    ds::Divisor maxtime;
+    __device__ __forceinline__ void prepare()
+    {
+        maxtime = ds::divisor(maxtime.y);
+    }
     __device__ __forceinline__ void operator()(const Ds (&u)[D],
                                                Ds (&f)[D]) const
     {
         using namespace ds;
-        const Ds mu = ds_sub(ds_sub(ds_div(u[2], maxtime),
+        const Ds mu = ds_sub(ds_sub(ds_div_by<2>(u[2], maxtime),
                                     ds_mul(u[0], u[0])),
                              ds_mul(u[1], u[1]));
         f[0] = ds_add(neg(u[1]), ds_mul(u[0], mu));
@@ -414,28 +512,42 @@ struct HopfDs {
     }
 };
 
+// Its three sines and cosines are independent Horner chains: lanes 0, 1 and
+// 2 of the slice's four compute one reduction each, at once, in one
+// instruction stream (each picks its argument without a branch, ds32.cuh:
+// pick), and exchange the pairs (lane 3 repeats lane 2's);
+// every lane then evaluates the rest alike. The division by 2 - cd^2, whose
+// divisor changes, keeps __fdiv_rn; it comes last, so that d1 and d3 are
+// formed before its branch.
 struct DblPendDs {
+    static constexpr int kLanes = 4;
     static constexpr int D = 4;
-    __device__ __forceinline__ void operator()(const Ds (&u)[D],
-                                               Ds (&f)[D]) const
+    __device__ __forceinline__ void prepare() {}
+    __device__ __forceinline__ void operator()(const Ds (&u)[D], Ds (&f)[D],
+                                               int lane) const
     {
         using namespace ds;
-        constexpr Ds two = pair(2.0), mtwo = pair(-2.0), mone = pair(-1.0);
-        Ds sd, cd, sin0, sin2, unused;
-        sin_cos(ds_sub(u[0], u[2]), sd, cd);
-        sin_cos(u[0], sin0, unused);
-        sin_cos(u[2], sin2, unused);
+        constexpr Ds two = pair(2.0), mone = pair(-1.0);
+        const Ds dq = ds_sub(u[0], u[2]);
+        // lane 0: sin and cos of dq; lanes 1 and 2: sin(u0) and sin(u2)
+        Ds sn, cs;
+        sin_cos(pick(lane == 0, dq, pick(lane == 1, u[0], u[2])), sn, cs);
+        const Ds sd = lane_pair<kLanes>(sn, 0);
+        const Ds cd = lane_pair<kLanes>(cs, 0);
+        const Ds sin0 = lane_pair<kLanes>(sn, 1);
+        const Ds sin2 = lane_pair<kLanes>(sn, 2);
         const Ds sq1 = ds_mul(u[1], u[1]);
         const Ds sq3 = ds_mul(u[3], u[3]);
-        const Ds den = ds_div(mone, ds_sub(two, ds_mul(cd, cd)));
+        const Ds den_in = ds_sub(two, ds_mul(cd, cd));
         const Ds d1 = ds_sub(ds_add(ds_add(ds_mul(ds_mul(sq1, cd), sd),
                                            ds_mul(sq3, sd)),
-                                    ds_mul(two, sin0)),
+                                    ds_pow2(sin0, 2.0f)),
                              ds_mul(cd, sin2));
-        const Ds d3 = ds_add(ds_sub(ds_sub(ds_mul(ds_mul(mtwo, sq1), sd),
+        const Ds d3 = ds_add(ds_sub(ds_sub(ds_mul(ds_pow2(sq1, -2.0f), sd),
                                            ds_mul(ds_mul(sq3, sd), cd)),
-                                    ds_mul(ds_mul(two, cd), sin0)),
-                             ds_mul(two, sin2));
+                                    ds_mul(ds_pow2(cd, 2.0f), sin0)),
+                             ds_pow2(sin2, 2.0f));
+        const Ds den = ds_div(mone, den_in);
         f[0] = u[1];
         f[1] = ds_mul(den, d1);
         f[2] = u[3];
@@ -444,19 +556,23 @@ struct DblPendDs {
 };
 
 struct BrusselatorDs {
+    static constexpr int kLanes = 1;
     static constexpr int D = 2;
+    __device__ __forceinline__ void prepare() {}
     __device__ __forceinline__ void operator()(const Ds (&u)[D],
                                                Ds (&f)[D]) const
     {
         using namespace ds;
         const Ds sq0_u1 = ds_mul(ds_mul(u[0], u[0]), u[1]);
-        f[0] = ds_sub(ds_add(pair(1.0), sq0_u1), ds_mul(pair(4.0), u[0]));
+        f[0] = ds_sub(ds_add(pair(1.0), sq0_u1), ds_pow2(u[0], 4.0f));
         f[1] = ds_sub(ds_mul(pair(3.0), u[0]), sq0_u1);
     }
 };
 
 struct LorenzDs {
+    static constexpr int kLanes = 1;
     static constexpr int D = 3;
+    __device__ __forceinline__ void prepare() {}
     __device__ __forceinline__ void operator()(const Ds (&u)[D],
                                                Ds (&f)[D]) const
     {
@@ -468,50 +584,68 @@ struct LorenzDs {
     }
 };
 
-// -a * u + roll(b * sin(u), -1): component c takes sin(u[c + 1]).
+// -a * u + roll(b * sin(u), -1): component c takes sin(u[c + 1]). Lane c
+// of the slice's four computes b * sin(u[c]) (lane 3 repeats lane 2's) and
+// the lanes exchange them, as DblPend's.
 struct ThomasLabyrinthDs {
+    static constexpr int kLanes = 4;
     static constexpr int D = 3;
-    __device__ __forceinline__ void operator()(const Ds (&u)[D],
-                                               Ds (&f)[D]) const
+    __device__ __forceinline__ void prepare() {}
+    __device__ __forceinline__ void operator()(const Ds (&u)[D], Ds (&f)[D],
+                                               int lane) const
     {
         using namespace ds;
-        constexpr Ds ma = pair(-0.5), b = pair(10.0);
-        Ds s[D], unused;
+        constexpr Ds b = pair(10.0);
+        Ds sn, unused;
+        sin_cos(pick(lane == 0, u[0], pick(lane == 1, u[1], u[2])), sn,
+                unused);
+        const Ds mine = ds_mul(b, sn);
 #pragma unroll
         for (int c = 0; c < D; ++c) {
-            sin_cos(u[c], s[c], unused);
-            s[c] = ds_mul(b, s[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < D; ++c) {
-            f[c] = ds_add(ds_mul(ma, u[c]), s[(c + 1) % D]);
+            f[c] = ds_add(ds_pow2(u[c], -0.5f),
+                          lane_pair<kLanes>(mine, (c + 1) % D));
         }
     }
 };
 
 // A raw field, and for Mapped the generic [-1,1] map of systems/base.py's
-// f_normalized, lifted: raw((v + 1) / 2 * span + mn) * scale.
+// f_normalized, lifted: raw((v + 1) / 2 * span + mn) * scale, the division
+// by the pair of 2 an exact halving (ds_pow2).
 template <class Raw, bool Mapped>
 struct SliceFieldDs {
     static constexpr int D = Raw::D;
+    static constexpr int kLanes = Raw::kLanes;
     Raw raw;
     Ds mn[D], span[D], scale[D];
 
-    __device__ __forceinline__ void eval(const Ds (&v)[D], Ds (&f)[D]) const
+    __device__ __forceinline__ void prepare() { raw.prepare(); }
+
+    __device__ __forceinline__ void raw_eval(const Ds (&x)[D], Ds (&f)[D],
+                                             int lane) const
+    {
+        if constexpr (kLanes > 1) {
+            raw(x, f, lane);
+        } else {
+            raw(x, f);
+        }
+    }
+
+    __device__ __forceinline__ void eval(const Ds (&v)[D], Ds (&f)[D],
+                                         int lane) const
     {
         using namespace ds;
         if constexpr (!Mapped) {
-            raw(v, f);
+            raw_eval(v, f, lane);
         } else {
-            constexpr Ds one = pair(1.0), two = pair(2.0);
+            constexpr Ds one = pair(1.0);
             Ds x[D];
 #pragma unroll
             for (int c = 0; c < D; ++c) {
-                x[c] = ds_add(ds_mul(ds_div(ds_add(v[c], one), two),
+                x[c] = ds_add(ds_mul(ds_pow2(ds_add(v[c], one), 0.5f),
                                      span[c]),
                               mn[c]);
             }
-            raw(x, f);
+            raw_eval(x, f, lane);
 #pragma unroll
             for (int c = 0; c < D; ++c) {
                 f[c] = ds_mul(f[c], scale[c]);
@@ -520,6 +654,10 @@ struct SliceFieldDs {
     }
 };
 
+// kLanes threads per slice (one, or four for the fields with sines); the
+// lanes of a slice carry the same state, and the lanes past the last slice
+// integrate it too and store nothing, so that every lane of a warp takes
+// part in the exchanges.
 template <class T, class F>
 __global__ void __launch_bounds__(kSliceThreads)
 ds_slice_kernel(const double* __restrict__ U, double* __restrict__ out,
@@ -527,14 +665,20 @@ ds_slice_kernel(const double* __restrict__ U, double* __restrict__ out,
 {
     constexpr int D = F::D;
     constexpr int S = T::S;
-    const int slice = blockIdx.x * blockDim.x + threadIdx.x;
-    if (slice >= B) {
+    constexpr int L = F::kLanes;
+    const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+    const int slice = gid / L;
+    const int lane = gid % L;
+    if (L == 1 && slice >= B) {
         return;
     }
+    const int row = slice < B ? slice : B - 1;
+    F f = field;
+    f.prepare();
     Ds u[D];
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-        u[c] = ds::from_f64(U[(size_t)slice * D + c]);
+        u[c] = ds::from_f64(U[(size_t)row * D + c]);
     }
     for (long long step = 0; step < steps; ++step) {
         Ds acc[S][D];
@@ -543,7 +687,7 @@ ds_slice_kernel(const double* __restrict__ U, double* __restrict__ out,
             constexpr int s = decltype(s_)::value;
             Ds v[D], k[D];
             stage_input<T, s>(v, u, acc);
-            field.eval(v, k);
+            f.eval(v, k, lane);
             add_stage<T, s>(acc, o, u, k, co);
         });
 #pragma unroll
@@ -551,10 +695,100 @@ ds_slice_kernel(const double* __restrict__ U, double* __restrict__ out,
             u[c] = o[c];
         }
     }
+    if (slice < B && lane == 0) {
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+            out[(size_t)slice * D + c] = ds::to_f64(u[c]);
+        }
+    }
+}
+
+// The same step with the stage loop rolled, for the fields whose unrolled
+// step would not fit the instruction cache (the fields with sines): one
+// copy of the field's code, not one a stage. Each stage's
+// k goes to shared memory (a column of S * D pairs a thread); after stage s
+// the next stage's input (after the last stage, the step's weight sum) is
+// summed from u over its terms in increasing j, as rk_step_ds sums it, the
+// last term, k_s, from registers.
+template <class T, class F>
+__global__ void __launch_bounds__(kSliceThreads)
+ds_slice_rolled_kernel(const double* __restrict__ U,
+                       double* __restrict__ out, int B, long long steps,
+                       Coefs co, Terms tm, F field)
+{
+    constexpr int D = F::D;
+    constexpr int S = T::S;
+    constexpr int L = F::kLanes;
+    extern __shared__ float2 kbuf[];  // k[s][c] at (s * D + c) * blockDim.x
+    const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+    const int slice = gid / L;
+    const int lane = gid % L;
+    if (L == 1 && slice >= B) {
+        return;
+    }
+    const int row = slice < B ? slice : B - 1;
+    const int nt = blockDim.x;
+    float2* const ks = kbuf + threadIdx.x;
+    F f = field;
+    f.prepare();
+    Ds u[D];
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-        out[(size_t)slice * D + c] = ds::to_f64(u[c]);
+        u[c] = ds::from_f64(U[(size_t)row * D + c]);
     }
+    for (long long step = 0; step < steps; ++step) {
+        Ds v[D];
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+            v[c] = u[c];
+        }
+#pragma unroll 1
+        for (int s = 0; s < S; ++s) {
+            Ds k[D];
+            f.eval(v, k, lane);
+#pragma unroll
+            for (int c = 0; c < D; ++c) {
+                ks[(s * D + c) * nt] = make_float2(k[c].hi, k[c].lo);
+                v[c] = u[c];
+            }
+            const int end = tm.start[s + 2];
+            int t = tm.start[s + 1];
+            for (; t < end && tm.j[t] < s; ++t) {
+                const Ds cf{co.hi[t], co.lo[t]};
+                const int j = tm.j[t];
+#pragma unroll
+                for (int c = 0; c < D; ++c) {
+                    const float2 kj = ks[(j * D + c) * nt];
+                    v[c] = ds::ds_axpy(v[c], cf, Ds{kj.x, kj.y});
+                }
+            }
+            if (t < end) {
+                const Ds cf{co.hi[t], co.lo[t]};
+#pragma unroll
+                for (int c = 0; c < D; ++c) {
+                    v[c] = ds::ds_axpy(v[c], cf, k[c]);
+                }
+            }
+        }
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+            u[c] = v[c];
+        }
+    }
+    if (slice < B && lane == 0) {
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+            out[(size_t)slice * D + c] = ds::to_f64(u[c]);
+        }
+    }
+}
+
+// Whether an instance takes the rolled stage loop: the fields with sines,
+// whose evaluation is most of a stage.
+template <class T, class F>
+constexpr bool rolled()
+{
+    return F::kLanes > 1;
 }
 
 template <bool Mapped, class Raw>
@@ -573,20 +807,36 @@ int launch_slice_field(const double* U, double* out, int tab, int B,
             field.scale[c] = pair(map[2 * D + c]);
         }
     }
-    const int threads = B < kSliceThreads ? (B + 31) / 32 * 32
-                                          : kSliceThreads;
-    const int blocks = (B + threads - 1) / threads;
+    // a warp or two for the small batches, blocks of kSliceThreads beyond
+    const int lanes = B * F::kLanes;
+    const int threads = lanes < kSliceThreads ? (lanes + 31) / 32 * 32
+                                              : kSliceThreads;
+    const int blocks = (lanes + threads - 1) / threads;
     return with_tableau(tab, [&](auto t) {
         using T = decltype(t);
-        auto kernel = ds_slice_kernel<T, F>;
-        if (query != nullptr) {
-            return attributes(kernel, threads, 0, query);
+        if constexpr (rolled<T, F>()) {
+            auto kernel = ds_slice_rolled_kernel<T, F>;
+            const size_t shmem = (size_t)T::S * D * threads * sizeof(float2);
+            if (query != nullptr) {
+                return attributes(kernel, threads, shmem, query);
+            }
+            Coefs co;
+            if (!fill_coefs<T>(co, coef_hi, coef_lo, n_coef)) {
+                return (int)cudaErrorInvalidValue;
+            }
+            kernel<<<blocks, threads, shmem, st>>>(U, out, B, steps, co,
+                                                   terms<T>(), field);
+        } else {
+            auto kernel = ds_slice_kernel<T, F>;
+            if (query != nullptr) {
+                return attributes(kernel, threads, 0, query);
+            }
+            Coefs co;
+            if (!fill_coefs<T>(co, coef_hi, coef_lo, n_coef)) {
+                return (int)cudaErrorInvalidValue;
+            }
+            kernel<<<blocks, threads, 0, st>>>(U, out, B, steps, co, field);
         }
-        Coefs co;
-        if (!fill_coefs<T>(co, coef_hi, coef_lo, n_coef)) {
-            return (int)cudaErrorInvalidValue;
-        }
-        kernel<<<blocks, threads, 0, st>>>(U, out, B, steps, co, field);
         return (int)cudaGetLastError();
     });
 }
@@ -661,8 +911,9 @@ extern "C" int ds_fanout_fhn_pde_launch(const double* U, double* out,
     if (d_x <= 0 || d_y <= 0) {
         return (int)cudaErrorInvalidValue;
     }
-    const FhnPdeDs field{d_x,     d_y,     pair(hx2), pair(hy2),
-                         pair(a), pair(b), pair(k),   pair(inv_tau)};
+    const FhnPdeDs field{d_x,           d_y,     {pair(hx2), 0.0f},
+                         {pair(hy2), 0.0f}, pair(a), pair(b),
+                         pair(k),           pair(inv_tau)};
     return launch_cells(U, out, tableau, B, d_x * d_y, steps, coef_hi,
                         coef_lo, n_coef, field, query, stream);
 }
@@ -709,6 +960,6 @@ extern "C" int ds_slice_hopf_launch(const double* U, double* out, int tableau,
         return (int)cudaErrorInvalidValue;
     }
     return launch_slices(U, out, tableau, B, steps, coef_hi, coef_lo, n_coef,
-                         map, HopfDs{pair(maxtime)}, query, stream);
+                         map, HopfDs{{pair(maxtime), 0.0f}}, query, stream);
 }
 #endif

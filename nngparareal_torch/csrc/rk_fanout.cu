@@ -703,6 +703,7 @@ enum ProbeKind {
     kProbeAddF32 = 6,  // f32 x = __fadd_rn(x, c): ds_fanout.cu's operations
     kProbeMulF32 = 7,  // f32 x = __fmul_rn(x, c)
     kProbeDivF32 = 8,  // f32 x = __fdiv_rn(x, c)
+    kProbeFmaF32 = 9,  // f32 x = __fmaf_rn(x, c, c - 1)
 };
 
 template <int K>
@@ -751,15 +752,17 @@ __global__ void latency_probe_kernel(long long n, double c,
         }
         t1 = clock64();
     } else if constexpr (K == kProbeAddF32 || K == kProbeMulF32
-                         || K == kProbeDivF32) {
+                         || K == kProbeDivF32 || K == kProbeFmaF32) {
         float xf = (float)x;
         const float cf = (float)c;
+        const float ef = cf - 1.0f;
         t0 = clock64();
         for (long long q = 0; q < n; q += kProbeUnroll) {
 #pragma unroll
             for (int r = 0; r < kProbeUnroll; ++r) {
                 xf = K == kProbeAddF32   ? __fadd_rn(xf, cf)
                      : K == kProbeMulF32 ? __fmul_rn(xf, cf)
+                     : K == kProbeFmaF32 ? __fmaf_rn(xf, cf, ef)
                                          : __fdiv_rn(xf, cf);
             }
         }
@@ -827,6 +830,10 @@ extern "C" int rk_latency_probe_launch(int kind, long long n, int threads,
             break;
         case kProbeDivF32:
             latency_probe_kernel<kProbeDivF32><<<1, 1, 0, st>>>(n, c, cycles,
+                                                                sink);
+            break;
+        case kProbeFmaF32:
+            latency_probe_kernel<kProbeFmaF32><<<1, 1, 0, st>>>(n, c, cycles,
                                                                 sink);
             break;
         case kProbeSync:

@@ -399,13 +399,14 @@ rk_fanout.launches_by_shape = {}
 # the latency probe's chains (csrc/rk_fanout.cu:ProbeKind), each with the
 # constant c it runs with: x + c, x * c, fma(x, c, c - 1), x / c,
 # sin(x) + c, the exchange round of the per-cell kernel, and f32 x + c,
-# x * c and x / c (__fadd_rn, __fmul_rn, __fdiv_rn: the double-single
-# kernel's operations)
+# x * c, x / c and fma(x, c, c - 1) (__fadd_rn, __fmul_rn, __fdiv_rn,
+# __fmaf_rn: the double-single kernel's operations)
 PROBE_KINDS = {"add": (0, 1e-3), "mul": (1, 1.0 + 2.0 ** -30),
                "fma": (2, 1.0 + 2.0 ** -30), "div": (3, 1.0 + 2.0 ** -30),
                "sin": (4, 1.5), "sync": (5, 0.5), "add_f32": (6, 1e-3),
                "mul_f32": (7, 1.0 + 2.0 ** -20),
-               "div_f32": (8, 1.0 + 2.0 ** -20)}
+               "div_f32": (8, 1.0 + 2.0 ** -20),
+               "fma_f32": (9, 1.0 + 2.0 ** -20)}
 
 
 def latency_probe(kind, n=1 << 20, threads=1, device=None):

@@ -229,7 +229,7 @@ def test_ode_coarse_solves_launch_the_kernel(name):
 @pytest.mark.parametrize("kind,threads", [
     ("add", 1), ("mul", 1), ("fma", 1), ("div", 1), ("sin", 1),
     ("sync", 128), ("sync", 256), ("add_f32", 1), ("mul_f32", 1),
-    ("div_f32", 1),
+    ("div_f32", 1), ("fma_f32", 1),
 ])
 def test_latency_probe_gives_finite_positive_cycles(kind, threads):
     dev = _card()
@@ -697,6 +697,27 @@ def test_ds_kernel_is_bitwise_its_plain_version(name, kw, tab):
     f64 = rk_cuda.rk_fanout(t0, t0 + 1e-2, U, tab, 10, fld,
                             ode.get_vector_field())
     assert (got - f64).abs().max().item() <= 1e-12
+
+
+@pytest.mark.parametrize("name", ["DblPend", "ThomasLabyrinth", "Lorenz"])
+def test_ds_kernel_lanes_span_blocks_bitwise(name):
+    """The per-slice ds form at B=37: four lanes a slice for DblPend and
+    ThomasLabyrinth (148 threads, three blocks, the last warp ragged),
+    one for Lorenz; bitwise its plain version at 4 RK4 steps, and the
+    instance's block size as csrc/ds_fanout.cu sets it."""
+    from nngparareal_torch.ops import rk_cuda_ds
+
+    dev = _card()
+    ode = getattr(nt, name)(normalization="-11", device=dev)
+    fld, f_ds = ode.get_device_field(), ode.get_ds_vector_field()
+    rng = np.random.default_rng(1)
+    U = torch.as_tensor(ode.u0[None, :] + 0.05 * rng.uniform(
+        -1.0, 1.0, (37, ode.get_dim())), dtype=torch.float64, device=dev)
+    got = rk_cuda_ds.ds_fanout(U, "RK4", 4, 1e-2, fld, f_ds)
+    want = rk_cuda_ds.plain_fanout_ds(f_ds, "RK4", 4, U, 1e-2)
+    assert torch.equal(got, want)
+    attrs = rk_cuda_ds.kernel_attributes(fld, "RK4", 37, ode.get_dim())
+    assert attrs["threads"] == 64 and attrs["local_bytes"] == 0
 
 
 def test_pallas_mode_launches_the_ds_kernel():
